@@ -8,8 +8,11 @@ into ``build/kernels/``), then:
 
   1. environment: the card, its power limit, CUDA, nvcc, the build time;
   2. each kernel against its plain PyTorch version on the card, over the
-     parity grid of ``repro_torch.kernels.parity`` (ragged cases and a deep
-     k = 2048, x metrics x f32/bf16) and its tolerance rule;
+     parity grids of ``repro_torch.kernels.parity`` and their tolerance
+     rules: the scan, distance and top-k grid (ragged cases and a deep
+     k = 2048, x metrics x f32/bf16), then the flash-attention grid (MHA,
+     GQA, MQA, causal or not, window x softcap, d = 128 on a ragged S,
+     Sq = 1, fully masked rows; x f32/bf16);
   3. MINT's main path at real scale: the paper's 8-column pool at 1,000,000
      rows, the bisimple workload (k = 100), ``Mint(index_kind="ivf")``
      tuned at theta_recall = 0.9 / 4 indexes, indexes built, the MINT and
@@ -23,7 +26,26 @@ into ``build/kernels/``), then:
      median of 20) beside the plain version, one PyTorch library call and
      the bound, at those main-path shapes;
   5. the same path on the CPU and on the card at the serving-test scale
-     (2,500 rows): configuration, plans, numDist, costs and ids must agree.
+     (2,500 rows): configuration, plans, numDist, costs and ids must agree;
+  6. the model substrate's serving path at Gemma-2-27B's full width and
+     depth (46 layers, d_model 4608, 32 / 16 heads of 128, d_ff 36864,
+     vocab 256000; 27.2e9 random bf16 parameters from a seed), after the
+     MINT phases' tensors are released: a prefill of 2 prompts x 8192
+     tokens from ``TokenPipeline``, the cache grown, 16 greedy decode steps,
+     then a prefill of the 8193 tokens, whose logits the first decode
+     step's must match (rtol 0.15, atol 0.35, the same top-1 token).
+     Attention runs in the flash kernel, whose launches are zeroed before
+     and read after. The q / k / v of the first local and first global
+     layer's prefill and of one decode step are noted;
+  7. the flash kernel against its plain version at those noted calls, in
+     bf16 and again in float32 on the same inputs, and timed beside the
+     plain version, the library call of the same function (flex_attention
+     with a softcap score_mod and a causal + window block mask, compiled),
+     an SDPA call that does less work (no softcap), and the bound at the
+     bf16 tensor-core rate;
+  8. the same model path on the CPU and on the card at
+     ``gemma2-27b.reduced()``: logits within the same tolerance, the same
+     top-1 tokens.
 
 Any failure exits non-zero. The last three lines are the card's name and
 power limit, the kernel table and ``{"ok": true, "device": {...}}``.
@@ -32,8 +54,10 @@ Without a CUDA device it exits 1.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -44,6 +68,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+MINT_KERNELS = ("streaming_fused_scan", "batched_scores", "topk_scores")
+MODEL = "gemma2-27b"
+PROMPTS, PROMPT_LEN, DECODE_STEPS = 2, 8192, 16
+# the JAX suite's prefill-vs-decode tolerance (tests/test_arch_smoke.py)
+LOGIT_RTOL, LOGIT_ATOL = 0.15, 0.35
 
 
 class SmokeFailure(Exception):
@@ -69,18 +98,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def card_peaks(name: str) -> tuple[float, float, str]:
-    """(bytes/s, f32 non-tensor flop/s, which data sheet) for the H100."""
+def card_peaks(name: str) -> dict:
+    """The H100's published peaks (data sheet, dense): memory bytes/s, f32
+    flop/s outside the tensor cores, bf16 tensor-core flop/s."""
     if "PCIe" in name:
-        return 2.0e12, 51e12, "H100 PCIe"
+        return dict(bytes=2.0e12, fp32=51e12, bf16=756e12, part="H100 PCIe")
     if "NVL" in name:
-        return 3.9e12, 60e12, "H100 NVL"
-    return 3.35e12, 67e12, "H100 SXM"
+        return dict(bytes=3.9e12, fp32=60e12, bf16=835e12, part="H100 NVL")
+    return dict(bytes=3.35e12, fp32=67e12, bf16=989e12, part="H100 SXM")
 
 
-def bound(bytes_moved: float, flops: float, peaks) -> tuple[float, str]:
-    t_bytes = bytes_moved / peaks[0] * 1e3
-    t_ops = flops / peaks[1] * 1e3
+def bound(bytes_moved: float, flops: float, peaks, rate: str = "fp32"
+          ) -> tuple[float, str]:
+    """The least time (ms) for ``bytes_moved`` and ``flops`` at the card's
+    memory rate and its peak for the operands' type (``rate``)."""
+    t_bytes = bytes_moved / peaks["bytes"] * 1e3
+    t_ops = flops / peaks[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -283,12 +316,12 @@ def phase_main_path(rows: int, dev) -> dict:
     emit("burst", query=q.name, plan=r["result"].plans[q.qid].describe(), batch=64,
          ids_equal_streaming_two_pass=True, **bursts)
 
-    counts = launch_counts()
+    counts = {name: n for name, n in launch_counts().items() if name in MINT_KERNELS}
     emit("launches", **counts,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          resident_column_bytes=r["engine"].cstore.total_device_bytes())
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+        check(n > 0, f"kernel {name} never launched on the MINT path")
     col = r["engine"].cstore.device(q.vid)
     qmat = col.pad_queries(np.stack([bq.concat() for bq in burst]))
     emit("distance_dispatches", **{kind: dict(shape=rec["shape"], **{
@@ -425,6 +458,320 @@ def phase_cpu_vs_card() -> None:
          cpu_counters=a["counters"], card_counters=b["counters"])
 
 
+# ---- the model substrate: Gemma-2-27B serving through the flash kernel ---------------
+
+
+def phase_flash_grid(dev, errs: dict) -> None:
+    from repro_torch.kernels.parity import FLASH_CASES, FLASH_DTYPES, check_flash_case
+    for name in FLASH_CASES:
+        for label, dtype in FLASH_DTYPES.items():
+            err = check_flash_case(name, dtype, dev)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            emit("flash_grid", case=name, dtype=label, max_abs_err=err)
+
+
+def same_logits(got, want, what: str) -> dict:
+    """Checks two (B, 1, V) logit tensors agree within the JAX suite's
+    prefill-vs-decode tolerance with the same top-1 token; returns the
+    numbers."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          f"{what}: logits not finite")
+    diff = (got - want).abs()
+    check(bool((diff <= LOGIT_ATOL + LOGIT_RTOL * want.abs()).all()),
+          f"{what}: logits differ beyond rtol {LOGIT_RTOL} / atol {LOGIT_ATOL} "
+          f"(max abs diff {diff.max().item():.4g})")
+    top2 = want.topk(2, dim=-1).values
+    check(torch.equal(got.argmax(-1), want.argmax(-1)), f"{what}: top-1 tokens differ")
+    return dict(max_abs_diff=diff.max().item(), top1=want.argmax(-1).flatten().tolist(),
+                top1_top2_gap=(top2[..., 0] - top2[..., 1]).flatten().tolist())
+
+
+class FlashCalls:
+    """The q / k / v of chosen flash-attention calls on the model path: the
+    first local and the first global layer of the prefill, and of the first
+    decode step. It wraps the kernel wrapper that the model's attention
+    calls and holds what it is given (nothing is copied inside a timed
+    window: later layers and steps leave those tensors and cache slots as
+    they are); ``keep`` then makes compact copies in the model's
+    (B, S, H, d) layout, once the timer has stopped. What the model computes
+    is unchanged. The kernel is then held against its plain version and
+    timed at exactly these inputs."""
+
+    def __init__(self):
+        self.phase = None
+        self.noted: dict[str, dict] = {}
+
+    def keep(self) -> None:
+        for n in self.noted.values():
+            if n.pop("held", False):
+                for x in "qkv":
+                    n[x] = n[x].transpose(1, 2).clone(memory_format=torch.contiguous_format)
+
+    def attach(self):
+        """Wraps ``models.attention.flash_attention``; returns an undo."""
+        from repro_torch.models import attention as A
+        from repro_torch.models.model import NO_WINDOW
+        fn = A.flash_attention
+
+        def noted(q, k, v, causal=True, window=0, softcap=0.0, scale=None):
+            key = f"{self.phase}_{'global' if window >= NO_WINDOW else 'local'}"
+            if self.phase and key not in self.noted:
+                self.noted[key] = dict(q=q, k=k, v=v, causal=causal, window=window,
+                                       softcap=softcap, held=True)
+            return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+
+        A.flash_attention = noted
+
+        def undo():
+            A.flash_attention = fn
+        return undo
+
+
+def phase_model_path(dev) -> dict:
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left < 1 << 30, f"{left} bytes still allocated after the MINT phases")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    cfg = get_arch(MODEL)
+    B, S = PROMPTS, PROMPT_LEN
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    emit("model_init", model=cfg.name, source=cfg.source, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         sliding_window=cfg.sliding_window, attn_softcap=cfg.attn_softcap,
+         logit_softcap=cfg.logit_softcap, param_count=n_params,
+         param_bytes=2 * n_params, allocated_bytes_before=left,
+         seconds=time.perf_counter() - t0)
+    tokens = TokenPipeline(cfg.vocab_size, B, S, seed=0).batch_at(0)
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    calls = FlashCalls()
+    undo = calls.attach()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        calls.phase = "prefill"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        calls.phase = None
+        calls.keep()
+        check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        big = M.grow_cache(cache, S + DECODE_STEPS)
+        del cache
+        tok = logits.argmax(-1)
+        first_tok, step_ms, generated = tok, [], []
+        calls.phase = "decode"
+        torch.cuda.synchronize()
+        t_window = time.perf_counter()
+        for i in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            step_logits, big = serve_step(params, big, tok, S + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            calls.phase = None
+            check(bool(torch.isfinite(step_logits).all()),
+                  f"decode step {i} logits not finite")
+            if i == 0:
+                first_logits = step_logits
+            tok = step_logits.argmax(-1)
+            generated.append(tok.flatten().tolist())
+        decode_window_ms = (time.perf_counter() - t_window) * 1e3
+        calls.keep()
+        del big
+        # the prompt and the first greedy token, prefilled at once
+        full_tokens = np.concatenate([tokens, first_tok.cpu().numpy()], axis=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full_logits, cache = prefill_step(params, {"tokens": full_tokens})
+        torch.cuda.synchronize()
+        prefill2_s = time.perf_counter() - t0
+        del cache
+    finally:
+        undo()
+    launches = launch_counts()["flash_attention"]
+    check(launches > 0, "kernel flash_attention never launched on the model path")
+    agree = same_logits(first_logits, full_logits,
+                        f"decode at position {S} vs prefill of {S + 1} tokens")
+    peak = torch.cuda.max_memory_allocated()
+    emit("model_path", model=cfg.name, prompts=B, prompt_len=S,
+         decode_steps=DECODE_STEPS, prefill_s=prefill_s,
+         prefill_tokens_per_s=B * S / prefill_s, prefill_s_at_len_plus_1=prefill2_s,
+         decode_window_ms=decode_window_ms,
+         decode_ms_per_step=decode_window_ms / DECODE_STEPS,
+         decode_tokens_per_s=B * DECODE_STEPS * 1e3 / decode_window_ms,
+         decode_ms_per_step_median=statistics.median(step_ms), decode_ms=step_ms,
+         first_tokens=first_tok.flatten().tolist(), generated=generated,
+         decode_vs_prefill=agree, rtol=LOGIT_RTOL, atol=LOGIT_ATOL,
+         flash_attention_launches=launches, kv_cache_bytes=cache_bytes,
+         max_memory_allocated_bytes=peak, card_memory_bytes=card_bytes,
+         noted_calls={key: dict(q=list(n["q"].shape), k=list(n["k"].shape),
+                                window=n["window"], softcap=n["softcap"])
+                      for key, n in calls.noted.items()})
+    check(set(calls.noted) == {"prefill_local", "prefill_global", "decode_local",
+                               "decode_global"},
+          f"noted flash calls {sorted(calls.noted)}")
+    return dict(params=params, noted=calls.noted, launches=launches)
+
+
+def kept_ranges(Sq: int, Skv: int, causal: bool, window: int):
+    """Per q row, the first and last kv position the flash kernel's mask
+    keeps (an empty row has last < first)."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, np.int64)
+    return lo, hi
+
+
+def kept_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the flash kernel's mask keeps: the work of this call."""
+    lo, hi = kept_ranges(Sq, Skv, causal, window)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def kept_kv_rows(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """kv positions some q row keeps: the k / v rows this call must read
+    (the rows' ranges move with q, so their union is one range)."""
+    lo, hi = kept_ranges(Sq, Skv, causal, window)
+    live = hi >= lo
+    return int(hi[live].max() - lo[live].min() + 1) if live.any() else 0
+
+
+def flex_call(q, k, v, *, causal: bool, window: int, softcap: float):
+    """One compiled ``torch.nn.attention.flex_attention`` call that computes
+    the flash kernel's function: a tanh-softcap score_mod (applied to the
+    scaled score, as the kernel does), a block mask of causality with q
+    aligned to the end of the kv sequence and the sliding window, and GQA.
+    Returns a callable. Used here as the library yardstick only."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    Sq, Skv = q.shape[2], k.shape[2]
+    offset = Skv - Sq
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        qpos = q_idx + offset
+        keep = kv_idx <= qpos if causal else kv_idx >= 0
+        if 0 < window < Skv:
+            keep = keep & (kv_idx > qpos - window)
+        return keep
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    block_mask = create_block_mask(mask_mod, None, None, Sq, Skv, device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=score_mod if softcap > 0 else None,
+                      block_mask=block_mask, enable_gqa=True)
+
+
+def phase_flash_times(model: dict, peaks, errs: dict) -> list[dict]:
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.parity import check_flash
+    rows = []
+    for key in ("prefill_global", "prefill_local", "decode_global", "decode_local"):
+        n = model["noted"][key]
+        q, k, v = (n[x].transpose(1, 2) for x in "qkv")
+        kw = dict(causal=n["causal"], window=n["window"], softcap=n["softcap"])
+        (B, Hq, Sq, d), Skv = q.shape, k.shape[2]
+        out = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = check_flash(out, want, f"flash at {key}")
+        mag = want.float().abs()
+        # again in float32 on the same q / k / v, at the f32 tolerance, where
+        # a mask one tile or one position off would show
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        err32 = check_flash(flash_attention(q32, k32, v32, **kw),
+                            attention_ref(q32, k32, v32, **kw), f"flash at {key} (f32)")
+        del q32, k32, v32
+        errs["flash_attention"] = max(errs["flash_attention"], err, err32)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+        plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), reps=5, warmup=1)
+        # the library call of the same function: flex_attention, compiled;
+        # it is checked against the plain version like the kernel
+        try:
+            flex = flex_call(q, k, v, **kw)
+            flex_err = check_flash(flex(), want, f"flex_attention at {key}")
+            library = cuda_ms(flex)
+            flex_note = None
+        except Exception as exc:  # reported in the line; the port does not use it
+            library, flex_err, flex_note = None, None, f"{type(exc).__name__}: {exc}"[:300]
+        # SDPA does less work (causal only, no softcap; top-left aligned, so the
+        # one-row decode call is unmasked, which at the cache's end is the same)
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=Sq > 1, enable_gqa=True))
+        pairs = kept_pairs(Sq, Skv, kw["causal"], kw["window"])
+        flops = 4.0 * B * Hq * d * pairs
+        # q and out once, and the k / v rows the mask keeps (a local layer's
+        # decode step reads its window only)
+        rows_kv = kept_kv_rows(Sq, Skv, kw["causal"], kw["window"])
+        nbytes = (q.numel() + out.numel()
+                  + 2 * k.numel() * rows_kv // Skv) * q.element_size()
+        # bf16 operands: both products at the bf16 tensor-core rate (QK^T is
+        # exact there with f32 accumulation; PV takes p in bf16, a rounding the
+        # bf16 tolerance admits and the bf16 output makes anyway)
+        b = bound(nbytes, flops, peaks, rate="bf16")
+        rec = dict(name="flash_attention", route="cuda",
+                   source="src/repro_torch/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention/kernel.py:24",
+                   launches=model["launches"], max_abs_err=err, ms=ms, plain_ms=plain,
+                   bound_ms=b[0], bound_by=b[1], library_ms=library)
+        emit("kernel_time", **rec, call=key, shape=[B, Hq, k.shape[1], Sq, Skv, d],
+             window=kw["window"], softcap=kw["softcap"], max_abs_err_f32=err32,
+             plain_mean_abs=mag.mean().item(), plain_max_abs=mag.max().item(),
+             library="flex_attention (compiled; softcap score_mod, causal + window "
+                     "block mask, enable_gqa)", library_max_abs_err=flex_err,
+             library_failed=flex_note, library_less_work_ms=sdpa,
+             library_less_work="sdpa causal, no softcap", kept_pairs=pairs,
+             kept_kv_rows=rows_kv, flops=flops,
+             bytes=nbytes, achieved_tflops=flops / ms / 1e9,
+             bound_fp32_non_tensor_ms=bound(nbytes, flops, peaks)[0])
+        if key == "prefill_global":
+            rows.append(dict(rec, max_abs_err=errs["flash_attention"]))
+    return rows
+
+
+def phase_model_cpu_vs_card() -> None:
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    cfg = get_arch(MODEL).reduced()
+    B, S = 2, 96  # S > the reduced window of 64: local layers mask
+    tokens = TokenPipeline(cfg.vocab_size, B, S + 1, seed=0).batch_at(0)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        pre, cache = prefill_step(p, {"tokens": tokens[:, :S]})
+        dec, _ = serve_step(p, M.grow_cache(cache, S + 1), tokens[:, S:], S)
+        out[dev] = (pre, dec)
+    emit("model_cpu_vs_card", model=cfg.name, layers=cfg.n_layers, prompts=B,
+         prompt_len=S, rtol=LOGIT_RTOL, atol=LOGIT_ATOL,
+         prefill=same_logits(out["cuda"][0], out["cpu"][0], "reduced prefill"),
+         decode=same_logits(out["cuda"][1], out["cpu"][1], "reduced decode"))
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000,
@@ -439,6 +786,11 @@ def main() -> int:
     from repro_torch.kernels.parity import ParityError
 
     dev = torch.device("cuda")
+    # the library yardstick's compiled kernels are cached inside the checkout
+    # and compiled in this process (no pool of compile workers left behind)
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     common.strict_fp32()
     t_start = time.perf_counter()
     card = card_line()
@@ -450,18 +802,26 @@ def main() -> int:
          nvcc=nvcc, device=torch.cuda.get_device_name(0),
          kernel_library=Path(lib._name).name, build_s=time.perf_counter() - t0)
     peaks = card_peaks(card)
-    errs = {"streaming_fused_scan": 0.0, "batched_scores": 0.0, "topk_scores": 0.0}
+    errs = {"streaming_fused_scan": 0.0, "batched_scores": 0.0, "topk_scores": 0.0,
+            "flash_attention": 0.0}
     try:
         phase_kernel_grid(dev, errs)
+        phase_flash_grid(dev, errs)
         if args.rows != 1_000_000:
             emit("scale_cut", rows=args.rows, paper_rows=1_000_000)
         main_path = phase_main_path(args.rows, dev)
         rows = phase_kernel_times(main_path, dev, peaks, errs)
         phase_cpu_vs_card()
+        del main_path  # the model needs the card's memory
+        model = phase_model_path(dev)
+        del model["params"]
+        rows += phase_flash_times(model, peaks, errs)
+        del model
+        phase_model_cpu_vs_card()
     except (SmokeFailure, ParityError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
-    emit("done", seconds=time.perf_counter() - t_start, peaks=peaks[2])
+    emit("done", seconds=time.perf_counter() - t_start, peaks=peaks)
     print(card)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}
                                   for r in rows]}))

@@ -4,12 +4,15 @@ The copied ``data.vectors.make_database`` gives identical data from the same
 seed, so data needs no carrying. What float reductions may legitimately
 change in the last bits — k-means centroids and assignments, the fitted
 estimator numbers — can be carried over from the reference's numpy state,
-so that everything downstream can be held to exact equality. These
-functions take numpy arrays and numbers, never objects of the reference.
+so that everything downstream can be held to exact equality. Model weights
+are carried the same way, so that the port and the reference compute the
+same model. These functions take numpy arrays and numbers, never objects of
+the reference.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.estimators import (ColumnStats, EstimatorBundle, LinearFit,
                                          LogFit)
@@ -67,3 +70,14 @@ def estimators_from_arrays(stats: dict, dims: list[int], n_rows: int,
                            sample_rate=float(sample_rate),
                            train_seconds=float(train_seconds),
                            theta_hit=float(theta_hit))
+
+
+def model_params_from_jax(params: dict, device=None) -> dict:
+    """The port's parameter tree from the reference's ``init_params`` tree
+    with every leaf as a numpy array (``jax.tree.map(np.asarray, params)``):
+    the same nesting, keys, stacked (L, ...) layer axis and dtypes, on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: model_params_from_jax(v, device) for k, v in params.items()}
+    return torch.as_tensor(np.array(params), device=device)

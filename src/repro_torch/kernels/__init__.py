@@ -1,12 +1,14 @@
 """Hand-written Hopper kernels (``csrc/``) behind PyTorch wrappers, each with
 its plain PyTorch version and a launch counter."""
 from repro_torch.kernels.distance.kernel import batched_scores
+from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.streaming.ops import streaming_fused_scan
 from repro_torch.kernels.topk.kernel import topk_scores
 
 WRAPPERS = {"streaming_fused_scan": streaming_fused_scan,
             "batched_scores": batched_scores,
-            "topk_scores": topk_scores}
+            "topk_scores": topk_scores,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

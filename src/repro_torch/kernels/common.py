@@ -159,6 +159,8 @@ def build_library() -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry points: name -> argument types (every one returns a cudaError_t)
 _SIGNATURES = {
@@ -167,6 +169,9 @@ _SIGNATURES = {
     "mint_streaming_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P],
+    "mint_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                             _I, _I, _F, _F, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""The case grid and the tolerance rule that hold each hand-written kernel
+"""The case grids and the tolerance rules that hold each hand-written kernel
 against its plain PyTorch version.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` run this grid on the card;
@@ -10,6 +10,12 @@ another order, so a score may differ from the plain one by ``tolerance(d)`` =
 1e-5 * sqrt(d) relative to max(|plain score|, 1). Top-k ids may differ only at
 a near tie: where the plain score of the kernel's id lies within that
 tolerance of the plain score at that slot.
+
+Flash attention has its own grid (``FLASH_CASES``, the cases of
+tests/test_kernels.py plus d = 128, a ragged S, decode's Sq = 1 and rows
+that causality masks entirely), each run in float32 and in bf16, and the
+JAX tests' own rule: the output within rtol = atol = 2e-3 of the plain
+version in float32, 5e-2 in bf16.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import torch
 from repro_torch.kernels.common import NEG_INF, pad_to
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ref import batched_scores_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.streaming.ops import streaming_fused_scan
 from repro_torch.kernels.streaming.ref import _masked_scores, streaming_fused_scan_ref
 from repro_torch.kernels.topk.kernel import topk_scores
@@ -160,3 +168,72 @@ def check_case(name: str, metric: str, dtype, device) -> dict:
     return dict(streaming_max_abs_err=scan_err, near_tie_swaps=swaps,
                 distance_max_abs_err=dist_err, topk_equal=True,
                 tol_rel=tolerance(d))
+
+
+# ---- flash attention -----------------------------------------------------------
+
+
+def _flash(B, Hq, Hkv, Sq, Skv, d, causal=True, window=0, softcap=0.0):
+    return dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, d=d, causal=causal,
+                window=window, softcap=softcap)
+
+
+FLASH_CASES = {
+    # tests/test_kernels.py: MHA square, GQA with Sq < Skv, MQA; causal or not
+    **{f"{name}_{'causal' if c else 'full'}": _flash(*shape, causal=c)
+       for name, shape in (("mha", (1, 2, 2, 64, 64, 32)),
+                           ("gqa", (2, 4, 2, 32, 96, 64)),
+                           ("mqa", (1, 8, 1, 128, 128, 64)))
+       for c in (True, False)},
+    # window x softcap, causal
+    **{f"window{w}_cap{int(cap)}": _flash(1, 2, 2, 96, 96, 32, window=w, softcap=cap)
+       for w in (0, 16) for cap in (0.0, 20.0)},
+    # the model's head dim on a ragged S, with Gemma-2's softcap and a window
+    "d128_ragged": _flash(2, 4, 2, 200, 200, 128, window=64, softcap=50.0),
+    # decode: one query row at the end of the cache
+    "decode_sq1": _flash(2, 4, 2, 1, 300, 128, window=128, softcap=50.0),
+    # Sq > Skv under causal: the first rows see no kv position and give 0
+    "masked_rows": _flash(1, 2, 1, 80, 40, 64),
+}
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def flash_case_arrays(name: str):
+    """float32 numpy (q, k, v) of flash case ``name`` in the kernel's
+    (B, H, S, d) layout; the seed is the case's position in
+    ``sorted(FLASH_CASES)``."""
+    c = FLASH_CASES[name]
+    rng = np.random.default_rng(sorted(FLASH_CASES).index(name))
+    q = rng.standard_normal((c["B"], c["Hq"], c["Sq"], c["d"])).astype(np.float32)
+    k = rng.standard_normal((c["B"], c["Hkv"], c["Skv"], c["d"])).astype(np.float32)
+    v = rng.standard_normal((c["B"], c["Hkv"], c["Skv"], c["d"])).astype(np.float32)
+    return q, k, v
+
+
+def flash_kwargs(name: str) -> dict:
+    c = FLASH_CASES[name]
+    return dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+
+
+def check_flash(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Max abs error of the kernel's output against the plain version's;
+    raises beyond the dtype's rtol = atol."""
+    tol = FLASH_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    if not bool((diff <= tol + tol * w.abs()).all()):
+        raise ParityError(f"{what}: flash attention differs beyond {tol} "
+                          f"(max abs err {err:.3g})")
+    return err
+
+
+def check_flash_case(name: str, dtype, device) -> float:
+    """The flash kernel against its plain version on case ``name`` in
+    ``dtype``; returns the max abs error."""
+    q, k, v = (torch.as_tensor(x, device=device).to(dtype)
+               for x in flash_case_arrays(name))
+    kw = flash_kwargs(name)
+    return check_flash(flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw),
+                       f"flash {name}/{str(dtype).removeprefix('torch.')}")

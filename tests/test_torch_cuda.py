@@ -14,7 +14,8 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ref import batched_scores_ref
-from repro_torch.kernels.parity import CARD_CASES, check_case, check_scores
+from repro_torch.kernels.parity import (CARD_CASES, FLASH_CASES, FLASH_DTYPES,
+                                        check_case, check_flash_case, check_scores)
 from repro_torch.kernels.topk.kernel import topk_scores
 from repro_torch.kernels.topk.ref import topk_ref
 
@@ -49,3 +50,10 @@ def test_distance_and_topk_kernels_match_plain_on_card(cuda_device, metric):
     vals, ids = topk_scores(rs, 2048)
     rvals, rids = topk_ref(rs, 2048)
     assert torch.equal(ids, rids) and torch.equal(vals, rvals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_attention_matches_plain_on_card(cuda_device, name, dtype):
+    check_flash_case(name, FLASH_DTYPES[dtype], cuda_device)
