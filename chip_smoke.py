@@ -9,10 +9,13 @@ into ``build/kernels/``), then:
   1. environment: the card, its power limit, CUDA, nvcc, the build time;
   2. each kernel against its plain PyTorch version on the card, over the
      parity grids of ``repro_torch.kernels.parity`` and their tolerance
-     rules: the scan, distance and top-k grid (ragged cases and a deep
-     k = 2048, x metrics x f32/bf16), then the flash-attention grid (MHA,
-     GQA, MQA, causal or not, window x softcap, d = 128 on a ragged S,
-     Sq = 1, fully masked rows; x f32/bf16);
+     rules: the scan, distance and top-k grid (ragged cases, a deep
+     k = 2048, and the scan's own cuts: many row blocks, two query tiles,
+     a 2048-key list, a shrunk query tile; x metrics x f32/bf16/f16), then
+     the flash-attention grid (MHA, GQA, MQA, causal or not, window x
+     softcap, d = 128 on a ragged S, Sq = 1, fully masked rows, long split
+     decodes, tensor-core tiles; x f32/bf16/f16), which must run all three
+     flash routes (split_kv, tensor_core, fp32);
   3. MINT's main path at real scale: the paper's 8-column pool at 1,000,000
      rows, the bisimple workload (k = 100), ``Mint(index_kind="ivf")``
      tuned at theta_recall = 0.9 / 4 indexes, indexes built, the MINT and
@@ -22,9 +25,10 @@ into ``build/kernels/``), then:
      zeroed before and read after; every kernel must have run. The shape of
      the largest distance dispatch of each kind (IVF centroids, rerank union,
      two-pass flat scan) is noted;
-  4. each kernel against its plain version again, and timed (CUDA events,
-     median of 20) beside the plain version, one PyTorch library call and
-     the bound, at those main-path shapes;
+  4. each kernel against its plain version again, and timed (device time:
+     CUDA events around each call behind a busy stream, median of 20)
+     beside the plain version, one PyTorch library call and the bound, at
+     those main-path shapes;
   5. the same path on the CPU and on the card at the serving-test scale
      (2,500 rows): configuration, plans, numDist, costs and ids must agree;
   6. the model substrate's serving path at Gemma-2-27B's full width and
@@ -73,6 +77,9 @@ MODEL = "gemma2-27b"
 PROMPTS, PROMPT_LEN, DECODE_STEPS = 2, 8192, 16
 # the JAX suite's prefill-vs-decode tolerance (tests/test_arch_smoke.py)
 LOGIT_RTOL, LOGIT_ATOL = 0.15, 0.35
+# torch.cuda._sleep spins for a count of SM clock cycles; 2e9 a second is at
+# or above the card's clock, so a sleep lasts at least the time asked for
+SLEEP_CYCLES_PER_S = 2e9
 
 
 class SmokeFailure(Exception):
@@ -118,11 +125,22 @@ def bound(bytes_moved: float, flops: float, peaks, rate: str = "fp32"
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """The device time of one call of ``fn`` (ms): the median over ``reps``
+    calls, each between two CUDA events. The stream is first held busy
+    (``torch.cuda._sleep``) for longer than the host takes to enqueue the
+    call, so the events time the device's work and not the Python around
+    the launches (a call's host time exceeds a decode-size kernel's)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(SLEEP_CYCLES_PER_S * (3 * host_s + 1e-3))
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -140,7 +158,7 @@ def phase_kernel_grid(dev, errs: dict) -> None:
     from repro_torch.kernels.parity import CARD_CASES, check_case
     for name in CARD_CASES:
         for metric in ("dot", "cosine", "l2"):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 res = check_case(name, metric, dtype, dev)
                 errs["streaming_fused_scan"] = max(errs["streaming_fused_scan"],
                                                    res["streaming_max_abs_err"])
@@ -340,6 +358,7 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
     from repro_torch.kernels.distance.ops import _mask_rows
     from repro_torch.kernels.distance.ref import batched_scores_ref
     from repro_torch.kernels.parity import check_scores, check_topk, combined_plain_scores
+    from repro_torch.kernels.streaming.kernel import scan_grid
     from repro_torch.kernels.streaming.ops import streaming_fused_scan
     from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
     from repro_torch.kernels.topk.kernel import topk_scores
@@ -348,12 +367,15 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
     N, d = col.n_rows, col.padded_dim
     rows = []
 
-    def row(name, route, source, replaces, shape, ms, plain_ms, library_ms, b):
+    def row(name, route, source, replaces, shape, ms, plain_ms, library_ms, b, **extra):
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
                          launches=main["counts"][name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                          library_ms=library_ms, shape=shape))
-        emit("kernel_time", **rows[-1])
+        emit("kernel_time", **rows[-1], **extra)
+
+    def rates(flops, nbytes, ms):
+        return dict(achieved_tflops=flops / ms / 1e9, achieved_gbps=nbytes / ms / 1e6)
 
     # streaming scan over the burst's resident column: the flat burst's
     # dispatch (B = 64) and a single query
@@ -367,15 +389,22 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
         ms = cuda_ms(lambda: streaming_fused_scan(q, col.data, k=k, valid_n=N))
         plain = cuda_ms(lambda: streaming_fused_scan_ref(q, col.data, k, valid_n=N))
         lib = cuda_ms(lambda: torch.topk(q @ col.data[:N].T, k, dim=1))
-        b = bound(4 * (B * d + N * d) + 8 * B * k, 2.0 * B * N * d, peaks)
+        nbytes, flops = 4 * (B * d + N * d) + 8 * B * k, 2.0 * B * N * d
+        b = bound(nbytes, flops, peaks)
+        grid = scan_grid(B, col.data.shape[0], 0, k,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+        extra = dict(**rates(flops, nbytes, ms), near_tie_swaps=swaps,
+                     grid=dict(query_tile=grid.qt, query_tiles=grid.n_qtiles,
+                               rows_per_block=grid.rows_per_block, blocks=grid.P,
+                               list_len=grid.lc))
         if B == 64:
             row("streaming_fused_scan", "cuda", "src/repro_torch/csrc/streaming.cu",
                 "src/repro/kernels/streaming/kernel.py:44", [B, N, d, k], ms, plain,
-                lib, b)
+                lib, b, **extra)
         else:
-            emit("kernel_time", name="streaming_fused_scan", shape=[B, N, d, k], ms=ms,
-                 plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
-                 near_tie_swaps=swaps)
+            emit("kernel_time", name="streaming_fused_scan", route="cuda",
+                 shape=[B, N, d, k], ms=ms, plain_ms=plain, library_ms=lib,
+                 bound_ms=b[0], bound_by=b[1], **extra)
 
     # distance: the largest dispatch of each kind on the main path (its own
     # queries; the rerank's rows are as many rows of the same column), then
@@ -397,13 +426,15 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
         ms = cuda_ms(lambda: batched_scores(q, x))
         plain = cuda_ms(lambda: batched_scores_ref(q, x))
         lib = cuda_ms(lambda: q @ x.T)
-        b = bound(4 * (B * dd + n * dd + B * n), 2.0 * B * n * dd, peaks)
+        nbytes, flops = 4 * (B * dd + n * dd + B * n), 2.0 * B * n * dd
+        b = bound(nbytes, flops, peaks)
         if label == "rerank":
             row("batched_scores", "cuda", "src/repro_torch/csrc/distance.cu",
-                "src/repro/kernels/distance/kernel.py:23", [B, n, dd], ms, plain, lib, b)
-        emit("kernel_time", name="batched_scores", dispatch=label, shape=[B, n, dd],
-             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
-             max_abs_err=de)
+                "src/repro/kernels/distance/kernel.py:23", [B, n, dd], ms, plain, lib, b,
+                **rates(flops, nbytes, ms))
+        emit("kernel_time", name="batched_scores", route="cuda", dispatch=label,
+             shape=[B, n, dd], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+             bound_by=b[1], max_abs_err=de, **rates(flops, nbytes, ms))
 
     # top-k over the two-pass flat scan's masked (B, N) scores at its own k,
     # as fused_scan computes them, then at the nominal k = 128
@@ -418,13 +449,16 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
         ms = cuda_ms(lambda: topk_scores(scores, kk))
         plain = cuda_ms(lambda: topk_ref(scores, kk))
         lib = cuda_ms(lambda: torch.topk(scores, kk, dim=1))
-        b = bound(4 * scores.numel() + 8 * B * kk, 0.0, peaks)
+        nbytes = 4 * scores.numel() + 8 * B * kk
+        b = bound(nbytes, 0.0, peaks)
         if kk == 128:
-            emit("kernel_time", name="topk_scores", dispatch="nominal", shape=[B, n, kk],
-                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1])
+            emit("kernel_time", name="topk_scores", route="cuda", dispatch="nominal",
+                 shape=[B, n, kk], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+                 bound_by=b[1], **rates(0.0, nbytes, ms))
         else:
             row("topk_scores", "cuda", "src/repro_torch/csrc/topk.cu",
-                "src/repro/kernels/topk/kernel.py:42", [B, n, kk], ms, plain, lib, b)
+                "src/repro/kernels/topk/kernel.py:42", [B, n, kk], ms, plain, lib, b,
+                **rates(0.0, nbytes, ms))
     return rows
 
 
@@ -462,12 +496,18 @@ def phase_cpu_vs_card() -> None:
 
 
 def phase_flash_grid(dev, errs: dict) -> None:
+    from repro_torch.kernels.flash_attention.kernel import ROUTES, flash_attention
     from repro_torch.kernels.parity import FLASH_CASES, FLASH_DTYPES, check_flash_case
+    routes = set()
     for name in FLASH_CASES:
         for label, dtype in FLASH_DTYPES.items():
             err = check_flash_case(name, dtype, dev)
+            route, splits = flash_attention.last_route
+            routes.add(route)
             errs["flash_attention"] = max(errs["flash_attention"], err)
-            emit("flash_grid", case=name, dtype=label, max_abs_err=err)
+            emit("flash_grid", case=name, dtype=label, route=route, splits=splits,
+                 max_abs_err=err)
+    check(routes == set(ROUTES), f"the flash grid ran routes {sorted(routes)}")
 
 
 def same_logits(got, want, what: str) -> dict:
@@ -529,6 +569,26 @@ class FlashCalls:
         return undo
 
 
+def decode_profile(step) -> dict:
+    """One call of ``step`` under torch.profiler: its host wall time, the
+    device time summed over its kernels (so the device's busy share of the
+    step), and the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+                top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
+                                  calls=e.count) for e in top])
+
+
 def phase_model_path(dev) -> dict:
     from repro_torch.configs.base import get_arch
     from repro_torch.data.tokens import TokenPipeline
@@ -570,7 +630,7 @@ def phase_model_path(dev) -> dict:
         calls.keep()
         check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
         cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
-        big = M.grow_cache(cache, S + DECODE_STEPS)
+        big = M.grow_cache(cache, S + DECODE_STEPS + 1)
         del cache
         tok = logits.argmax(-1)
         first_tok, step_ms, generated = tok, [], []
@@ -590,6 +650,8 @@ def phase_model_path(dev) -> dict:
             tok = step_logits.argmax(-1)
             generated.append(tok.flatten().tolist())
         decode_window_ms = (time.perf_counter() - t_window) * 1e3
+        # one more step under the profiler: the device time by kernel
+        profile = decode_profile(lambda: serve_step(params, big, tok, S + DECODE_STEPS))
         calls.keep()
         del big
         # the prompt and the first greedy token, prefilled at once
@@ -602,8 +664,12 @@ def phase_model_path(dev) -> dict:
         del cache
     finally:
         undo()
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     launches = launch_counts()["flash_attention"]
+    route_launches = dict(flash_attention.route_launches)
     check(launches > 0, "kernel flash_attention never launched on the model path")
+    check(route_launches["split_kv"] > 0 and route_launches["tensor_core"] > 0,
+          f"flash routes on the model path: {route_launches}")
     agree = same_logits(first_logits, full_logits,
                         f"decode at position {S} vs prefill of {S + 1} tokens")
     peak = torch.cuda.max_memory_allocated()
@@ -614,9 +680,11 @@ def phase_model_path(dev) -> dict:
          decode_ms_per_step=decode_window_ms / DECODE_STEPS,
          decode_tokens_per_s=B * DECODE_STEPS * 1e3 / decode_window_ms,
          decode_ms_per_step_median=statistics.median(step_ms), decode_ms=step_ms,
+         decode_step_profile=profile,
          first_tokens=first_tok.flatten().tolist(), generated=generated,
          decode_vs_prefill=agree, rtol=LOGIT_RTOL, atol=LOGIT_ATOL,
-         flash_attention_launches=launches, kv_cache_bytes=cache_bytes,
+         flash_attention_launches=launches, flash_route_launches=route_launches,
+         kv_cache_bytes=cache_bytes,
          max_memory_allocated_bytes=peak, card_memory_bytes=card_bytes,
          noted_calls={key: dict(q=list(n["q"].shape), k=list(n["k"].shape),
                                 window=n["window"], softcap=n["softcap"])
@@ -699,6 +767,7 @@ def phase_flash_times(model: dict, peaks, errs: dict) -> list[dict]:
         del q32, k32, v32
         errs["flash_attention"] = max(errs["flash_attention"], err, err32)
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+        route, splits = flash_attention.last_route
         plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), reps=5, warmup=1)
         # the library call of the same function: flex_attention, compiled;
         # it is checked against the plain version like the kernel
@@ -729,7 +798,8 @@ def phase_flash_times(model: dict, peaks, errs: dict) -> list[dict]:
                    replaces="src/repro/kernels/flash_attention/kernel.py:24",
                    launches=model["launches"], max_abs_err=err, ms=ms, plain_ms=plain,
                    bound_ms=b[0], bound_by=b[1], library_ms=library)
-        emit("kernel_time", **rec, call=key, shape=[B, Hq, k.shape[1], Sq, Skv, d],
+        emit("kernel_time", **dict(rec, route=route), splits=splits, call=key,
+             shape=[B, Hq, k.shape[1], Sq, Skv, d],
              window=kw["window"], softcap=kw["softcap"], max_abs_err_f32=err32,
              plain_mean_abs=mag.mean().item(), plain_max_abs=mag.max().item(),
              library="flex_attention (compiled; softcap score_mod, causal + window "
@@ -738,6 +808,7 @@ def phase_flash_times(model: dict, peaks, errs: dict) -> list[dict]:
              library_less_work="sdpa causal, no softcap", kept_pairs=pairs,
              kept_kv_rows=rows_kv, flops=flops,
              bytes=nbytes, achieved_tflops=flops / ms / 1e9,
+             achieved_gbps=nbytes / ms / 1e6,
              bound_fp32_non_tensor_ms=bound(nbytes, flops, peaks)[0])
         if key == "prefill_global":
             rows.append(dict(rec, max_abs_err=errs["flash_attention"]))

@@ -3,18 +3,32 @@
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:_flash_kernel (grid
 // (B, Hq, Sq/bq, Skv/bkv) with the KV axis walked in order, the running
-// (m, l, acc) kept in VMEM scratch across grid steps). Semantics kept:
-// query head h reads KV head h / (Hq / Hkv); q row i sits at position
-// Skv - Sq + i (aligned to the END of the kv sequence); a kv position is
-// kept if it is < Skv, <= the q position under `causal`, and > the q
-// position - window when window > 0; scores are q.k * scale, then
+// (m, l, acc) kept in VMEM scratch across grid steps). Semantics kept by
+// every route: query head h reads KV head h / (Hq / Hkv); q row i sits at
+// position Skv - Sq + i (aligned to the END of the kv sequence); a kv
+// position is kept if it is < Skv, <= the q position under `causal`, and
+// > the q position - window when window > 0; scores are q.k * scale, then
 // cap * tanh(s / cap) when cap > 0, then masked to NEG_INF, and masked
 // terms add exactly 0. A row with no kept position gives 0 (l clamped at
 // 1e-30). On the model path window is 4096 (Gemma-2 local layers) or
 // 1 << 30 (global layers: no mask, passed as an int32).
 //
-// Design. Blocks run in no order, so the sequential KV grid axis becomes a
-// loop inside the block: one block per (64-query tile, q head, batch row)
+// Three routes, chosen by shape and dtype in mint_flash_route (never by a
+// failure):
+// (a) split-KV decode (flash_split.cu) when Sq x group <= 64 rows: every
+//     decode step. One block per (batch row, KV head, KV split) holds all
+//     the group's query heads, so K / V are read once per KV head, and the
+//     kept range is cut into enough splits to fill the card; a combine
+//     kernel folds the splits' (m, l, acc) in split order. Bound: bytes.
+// (b) tensor-core prefill (flash_tc.cu) for bf16 / f16 beyond that:
+//     mma.sync m16n8k16 products with f32 accumulation, K / V tiles by
+//     cp.async. Bound: operations.
+// (c) float32 beyond that: this file's FP32-FMA kernel, below, unchanged
+//     from the first port (f32 products; TF32 would not hold the f32
+//     tolerance).
+//
+// Route (c). Blocks run in no order, so the sequential KV grid axis becomes
+// a loop inside the block: one block per (64-query tile, q head, batch row)
 // stages its q tile in shared memory once, then walks 64-row K/V tiles.
 // Tiles are staged as float32 from 16-byte loads, each thread issuing all
 // of its loads before its stores, so a tile pays the load latency once.
@@ -26,34 +40,14 @@
 // the K tile's shared memory once the scores are taken: 100,352 bytes at
 // d = 128, so two blocks fit on an SM. K/V tiles that the causal mask or
 // the window masks entirely are skipped: exact, since on such a tile
-// m_cur = NEG_INF gives alpha = 1 and p = 0.
-//
-// What limits it on an H100: at the model's prefill, (2, 32, 8192, 128)
-// causal, the work is 4 * B * Hq * d flops per kept (q, k) pair, about
-// 1.1e12 flops, against 0.4 GB of q, k, v and out: operation-bound, and
-// the FP32 FMA units (67 TFLOP/s) are its ceiling here, since the tensor
-// cores (989 TFLOP/s in bf16) are not used; P.V's scalar shared reads of V
-// (one per 4 FMAs) keep it below even that. At d = 128 ptxas gives 128
-// registers (the two-blocks-per-SM cap) with a 32-byte spill; the kernel
-// reaches ~29 TFLOP/s there (NVIDIA H100 80GB HBM3, 700 W). At decode
-// (Sq = 1) 63 of the 64 rows of the q tile are idle and only B * Hq blocks
-// run, each walking the whole cache alone: ~2 ms against a KV-read bound
-// of 0.04 ms.
-// wgmma with TMA-fed K/V tiles, and splitting the KV walk across blocks at
-// decode (packing a GQA group's query heads into one tile), are the next
-// steps.
-#include "select.cuh"
+// m_cur = NEG_INF gives alpha = 1 and p = 0. It is bound by the FP32 FMA
+// units (67 TFLOP/s) and its scalar shared reads of V.
+#include "flash.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BKV = 64, THREADS = 256;
 constexpr int PLD = BKV + 4;  // row stride of the P tile in shared memory
-
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ void store_as(__half* p, float x) { *p = __float2half(x); }
 
 // shared-memory row stride of the q and k tiles: a multiple of 4 floats
 // (16-byte rows for float4 reads) whose bank offset of 4 per row keeps the
@@ -67,30 +61,6 @@ __host__ __device__ constexpr int smem_floats() {
   // taken), then the v tile
   constexpr int kp = BKV * tile_ld<D>() > BQ * PLD ? BKV * tile_ld<D>() : BQ * PLD;
   return BQ * tile_ld<D>() + kp + BKV * D;
-}
-
-// The float32 values of 16 loaded bytes of T (the pointer only picks the type).
-__device__ __forceinline__ void unpack(uint4 r, float* f, const float*) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(uint4 r, float* f, const __nv_bfloat16*) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the high half of an f32
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(uint4 r, float* f, const __half*) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
-    f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
-  }
 }
 
 // Rows 0..63 of a (rows, D) operand whose row r starts at src + r * stride,
@@ -124,7 +94,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long long 
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int Hq, int group,
                  int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss, long long v_sb,
@@ -267,61 +237,68 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int Hq, int Hkv, int Sq, int Skv, const long long* st, int causal,
-                   int window, float softcap, float scale, cudaStream_t s) {
+cudaError_t launch_fp32(const FlashArgs& a, cudaStream_t s) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fp32_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, bytes, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hq / Hkv, Sq, Skv, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
-      softcap, scale);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.Hq, a.B);
+  flash_fp32_kernel<T, D><<<grid, THREADS, bytes, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.Hq, a.Hq / a.Hkv, a.Sq,
+      a.Skv, a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss, a.v_sb, a.v_sh, a.v_ss,
+      a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* out,
-                     int B, int Hq, int Hkv, int Sq, int Skv, const long long* st,
-                     int causal, int window, float softcap, float scale,
-                     cudaStream_t s) {
+cudaError_t flash_fp32(const FlashArgs& a, int d, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                                  window, softcap, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                                  window, softcap, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                                    window, softcap, scale, s);
+    case 32: return launch_fp32<float, 32>(a, s);
+    case 64: return launch_fp32<float, 64>(a, s);
+    case 128: return launch_fp32<float, 128>(a, s);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The route of a call, by shape and dtype: split-KV when the q rows of one
+// KV head (Sq x group) fit one block's tile, else tensor cores for bf16 /
+// f16, else the float32 kernel. -1 for a dtype no route takes.
+extern "C" int mint_flash_route(int Sq, int group, int dtype) {
+  if (dtype != DTYPE_F32 && dtype != DTYPE_BF16 && dtype != DTYPE_F16) return -1;
+  if ((long long)Sq * group <= MINT_SPLIT_ROWS) return ROUTE_SPLIT_KV;
+  return dtype == DTYPE_F32 ? ROUTE_FP32 : ROUTE_TENSOR_CORE;
+}
+
 // Strides are in elements, for the (batch, head, sequence) axes of q, k and
 // v; the head axis of each is contiguous (stride 1). Every pointer is 16-byte
 // aligned and every stride a multiple of 16 bytes (the wrapper checks).
-// out is contiguous.
-extern "C" int mint_flash_attention(const void* q, const void* k, const void* v,
-                                    void* out, int B, int Hq, int Hkv, int Sq,
-                                    int Skv, int d, long long q_sb, long long q_sh,
-                                    long long q_ss, long long k_sb, long long k_sh,
-                                    long long k_ss, long long v_sb, long long v_sh,
-                                    long long v_ss, int causal, int window,
-                                    float softcap, float scale, int dtype,
-                                    void* stream) {
-  const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+// out is contiguous. The split plan (kv_begin, kv_end, chunk, n_splits) and
+// its f32 scratch are read on the split-KV route only.
+extern "C" int mint_flash_attention(
+    const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
+    int Sq, int Skv, int d, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, int causal, int window, float softcap, float scale, int dtype,
+    int kv_begin, int kv_end, int chunk, int n_splits, void* part_m, void* part_l,
+    void* part_acc, void* stream) {
+  const FlashArgs a = {q, k, v, out, B, Hq, Hkv, Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh,
+                       k_ss, v_sb, v_sh, v_ss, causal, window, softcap, scale};
+  const SplitPlan plan = {kv_begin, kv_end, chunk, n_splits, (float*)part_m,
+                          (float*)part_l, (float*)part_acc};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case DTYPE_F32: return launch_d<float>(d, q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
-                                           causal, window, softcap, scale, s);
-    case DTYPE_BF16: return launch_d<__nv_bfloat16>(d, q, k, v, out, B, Hq, Hkv, Sq,
-                                                    Skv, st, causal, window, softcap,
-                                                    scale, s);
-    case DTYPE_F16: return launch_d<__half>(d, q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
-                                            causal, window, softcap, scale, s);
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  switch (mint_flash_route(Sq, Hq / Hkv, dtype)) {
+    case ROUTE_SPLIT_KV:
+      if (n_splits < 1 || !part_m || !part_l || !part_acc) return cudaErrorInvalidValue;
+      if (dtype == DTYPE_F32) return flash_split_kv<float>(a, d, plan, s);
+      if (dtype == DTYPE_BF16) return flash_split_kv<__nv_bfloat16>(a, d, plan, s);
+      return flash_split_kv<__half>(a, d, plan, s);
+    case ROUTE_TENSOR_CORE:
+      if (dtype == DTYPE_BF16) return flash_tensor_core<__nv_bfloat16>(a, d, s);
+      return flash_tensor_core<__half>(a, d, s);
+    case ROUTE_FP32:
+      return flash_fp32(a, d, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -4,39 +4,47 @@
 // Replaces the cross-grid-step carry of the TPU kernels: on the TPU one
 // (bm, k) buffer is revisited by every sequential row tile; on Hopper the
 // row tiles run as independent blocks, each leaving a sorted partial list,
-// and this pass folds them. Each round merges list pairs by merge path: one
-// thread per output slot binary-searches its split point, so a round is one
-// launch with no atomics and a fixed result. Bound: the partial-list bytes,
-// B * P * min(k, chunk) * 8 read and written per round, halving P.
+// and this pass folds them. Each round folds groups of F lists (F from
+// kernels/common.py: merge_fan_in -- 8 for small lists, so a B = 1 scan's
+// 261 lists take 3 launches, 2 for large ones, where each key's F - 1
+// binary searches would cost more than the launches saved): every key
+// finds its rank in its group's union, so a round is one launch with no
+// atomics and a fixed result. Bound: the partial-list bytes.
 #include "select.cuh"
 
-__global__ void merge_pairs_kernel(const u64* __restrict__ in, int B, int P, int L,
-                                   u64* __restrict__ out, int P2, int L2) {
-  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)B * P2 * L2;
-  if (tid >= total) return;
-  const int i = (int)(tid % L2);
-  const size_t rest = tid / L2;
-  const int j = (int)(rest % P2);
-  const int b = (int)(rest / P2);
-  const u64* A = in + ((size_t)b * P + 2 * j) * L;
-  const u64* Bl = A + L;
-  const int La = L;
-  const int Lb = (2 * j + 1 < P) ? L : 0;
-  u64 v = 0ull;
-  if (i < La + Lb) {
-    int lo = max(0, i - Lb), hi = min(i, La);
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (A[mid] >= Bl[i - 1 - mid]) lo = mid + 1;
-      else hi = mid;
-    }
-    const int ia = lo, ib = i - lo;
-    if (ib >= Lb) v = A[ia];
-    else if (ia >= La) v = Bl[ib];
-    else v = (A[ia] >= Bl[ib]) ? A[ia] : Bl[ib];
+// Count of keys in the descending list `l` of length n that are > a
+// (strict) or >= a: the first position whose key is <= a (or < a).
+__device__ __forceinline__ int count_above(const u64* l, int n, u64 a, bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (or_equal ? l[mid] >= a : l[mid] > a) lo = mid + 1;
+    else hi = mid;
   }
-  out[((size_t)b * P2 + j) * L2 + i] = v;
+  return lo;
+}
+
+// One round: groups of F lists of length L fold into lists of L2 keys.
+// Each key finds its rank in its group's union -- its own position plus
+// the keys above it in the other lists (equal keys, which only the empty
+// key 0 can have, go to the earlier list) -- so the ranks are a
+// permutation and each output slot is written once; slots past the
+// group's key count are zero.
+__global__ void merge_rank_kernel(const u64* __restrict__ in, int B, int P, int L,
+                                  u64* __restrict__ out, int P2, int L2, int F) {
+  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid < (size_t)B * P2 * L2) {
+    const int s = (int)(tid % L2), g = (int)((tid / L2) % P2);
+    if (s >= min(F, P - g * F) * L) out[tid] = 0ull;
+  }
+  if (tid >= (size_t)B * P * L) return;
+  const int i = (int)(tid % L), p = (int)((tid / L) % P), b = (int)(tid / ((size_t)L * P));
+  const int g = p / F, q1 = min(g * F + F, P);
+  const u64 a = in[tid];
+  int rank = i;
+  for (int q = g * F; q < q1; ++q)
+    if (q != p) rank += count_above(in + ((size_t)b * P + q) * L, L, a, q < p);
+  if (rank < L2) out[((size_t)b * P2 + g) * L2 + rank] = a;
 }
 
 __global__ void finalize_kernel(const u64* __restrict__ keys, int B, int L, int k,
@@ -54,17 +62,18 @@ __global__ void finalize_kernel(const u64* __restrict__ keys, int B, int L, int 
   }
 }
 
-cudaError_t mint_merge_finalize(u64* a, u64* b, int B, int P, int L, int k,
+cudaError_t mint_merge_finalize(u64* a, u64* b, int B, int P, int L, int k, int F,
                                 float* vals, int* ids, cudaStream_t stream) {
   const int threads = 256;
+  if (F < 2) return cudaErrorInvalidValue;
   u64* cur = a;
   u64* nxt = b;
   while (P > 1) {
-    const int P2 = (P + 1) / 2;
-    const int L2 = min(k, 2 * L);
-    const size_t total = (size_t)B * P2 * L2;
-    merge_pairs_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                         stream>>>(cur, B, P, L, nxt, P2, L2);
+    const int P2 = (P + F - 1) / F;
+    const int L2 = min(k, F * L);
+    const size_t total = max((size_t)B * P * L, (size_t)B * P2 * L2);
+    merge_rank_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
+        cur, B, P, L, nxt, P2, L2, F);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     u64* t = cur;

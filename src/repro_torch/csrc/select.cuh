@@ -77,8 +77,8 @@ __device__ __forceinline__ void bitonic_sort_desc(u64* keys, int rows, int n) {
   __syncthreads();
 }
 
-// Merge the B x P sorted partial lists of length L in `a` (pairwise, merge
-// path, `b` as the ping-pong buffer) down to one list of k keys per query,
+// Merge the B x P sorted partial lists of length L in `a` (F lists a
+// round, `b` as the ping-pong buffer) down to one list of k keys per query,
 // then decode it into (vals, ids). Returns the first CUDA error.
-cudaError_t mint_merge_finalize(u64* a, u64* b, int B, int P, int L, int k,
+cudaError_t mint_merge_finalize(u64* a, u64* b, int B, int P, int L, int k, int F,
                                 float* vals, int* ids, cudaStream_t stream);

@@ -11,7 +11,7 @@
 // Design: the columns are split across blocks instead of folded in order.
 // Block (chunk, row) turns MINT_CHUNK scores into sort keys in shared
 // memory, bitonic-sorts them, and writes its best min(k, chunk) keys; the
-// merge pass in select.cu folds the partial lists pairwise in a fixed order.
+// merge pass in select.cu folds the partial lists by rank, a fixed result.
 // So every SM has work at B = 1, and no atomics decide the selection.
 #include "select.cuh"
 
@@ -43,11 +43,12 @@ cudaError_t launch(const void* scores, int B, int N, int P, int Lc, u64* a,
 
 }  // namespace
 
-// P = ceil(N / MINT_CHUNK) and Lc = min(k, MINT_CHUNK), computed by the
-// wrapper, which sizes the two scratch buffers for every merge round.
+// P = ceil(N / MINT_CHUNK), Lc = min(k, MINT_CHUNK) and the merge fan-in,
+// computed by the wrapper, which sizes the two scratch buffers for every
+// merge round.
 extern "C" int mint_topk_scores(const void* scores, int B, int N, int k, int P,
-                                int Lc, int dtype, void* scratch_a, void* scratch_b,
-                                void* vals, void* ids, void* stream) {
+                                int Lc, int fan_in, int dtype, void* scratch_a,
+                                void* scratch_b, void* vals, void* ids, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   u64* a = (u64*)scratch_a;
   cudaError_t err = cudaErrorInvalidValue;
@@ -57,6 +58,6 @@ extern "C" int mint_topk_scores(const void* scores, int B, int N, int k, int P,
     case DTYPE_F16: err = launch<__half>(scores, B, N, P, Lc, a, s); break;
   }
   if (err != cudaSuccess) return err;
-  return mint_merge_finalize(a, (u64*)scratch_b, B, P, Lc, k, (float*)vals,
+  return mint_merge_finalize(a, (u64*)scratch_b, B, P, Lc, k, fan_in, (float*)vals,
                              (int*)ids, s);
 }

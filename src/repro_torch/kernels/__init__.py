@@ -19,3 +19,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    flash_attention.route_launches = dict.fromkeys(flash_attention.route_launches, 0)

@@ -28,7 +28,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-# rows (or score columns) one block of the scan and top-k kernels sorts;
+# streaming multiprocessors of an H100 SXM: the grid planners' default when
+# no device is asked (the wrappers pass the card's own count)
+H100_SMS = 132
+
+# rows (or score columns) one block of the top-k kernel sorts;
 # must equal MINT_CHUNK in csrc/select.cuh (checked when the library loads)
 CHUNK = 1024
 
@@ -165,13 +169,11 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (every one returns a cudaError_t)
 _SIGNATURES = {
     "mint_batched_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mint_topk_scores": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "mint_streaming_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P],
-    "mint_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                             _I, _I, _F, _F, _I, _P],
+    "mint_topk_scores": [_P] + [_I] * 7 + [_P] * 5,
+    "mint_streaming_scan": [_P] * 10 + [_I] * 21 + [_P] * 5,
+    "mint_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _F, _I]
+                            + [_I] * 4 + [_P] * 4,
+    "mint_flash_route": [_I, _I, _I],
 }
 
 
@@ -222,12 +224,23 @@ def check_cuda_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def merge_scratch_elems(B: int, P: int, Lc: int, k: int) -> int:
+# lists a merge round folds (csrc/select.cu: merge_rank_kernel): each key
+# does fan_in - 1 binary searches, so a wide fan-in pays only where the
+# lists are few and short (a B = 1 scan: 3 launches instead of 9)
+MERGE_WIDE_FAN_IN, MERGE_WIDE_MAX_KEYS = 8, 1 << 17
+
+
+def merge_fan_in(B: int, P: int, Lc: int) -> int:
+    """Fan-in of the merge of B x P partial lists of Lc keys."""
+    return MERGE_WIDE_FAN_IN if B * P * Lc <= MERGE_WIDE_MAX_KEYS else 2
+
+
+def merge_scratch_elems(B: int, P: int, Lc: int, k: int, fan_in: int) -> int:
     """u64 elements each of the two ping-pong buffers needs: the phase-one
-    partial lists (B, P, Lc) and every pairwise merge round after it."""
+    partial lists (B, P, Lc) and every merge round after it."""
     most = B * P * Lc
     L = Lc
     while P > 1:
-        P, L = (P + 1) // 2, min(k, 2 * L)
+        P, L = cdiv(P, fan_in), min(k, fan_in * L)
         most = max(most, B * P * L)
     return most

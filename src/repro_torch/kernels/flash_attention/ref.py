@@ -49,3 +49,52 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = torch.einsum("bhqk,bhkd->bhqd", p, vv) / l.clamp(min=1e-30)
         out[:, :, i0:i1] = o.to(q.dtype)
     return out
+
+
+def split_partials_ref(q, k, v, ranges, causal: bool = True, window: int = 0,
+                       softcap: float = 0.0, scale: float | None = None):
+    """The split-KV route's per-split partials, plainly: for each kv range
+    [s0, s1) of ``ranges``, each KV head and its ``group`` x Sq q rows (row
+    g * Sq + i is query head h * group + g, row i), the running max ``m``,
+    the sum ``l`` of exp(s - m) and the unnormalised ``acc`` over the kept
+    keys of that range. Shapes (B, Hkv, n_splits, rows) and
+    (B, Hkv, n_splits, rows, d), float32; a row with nothing kept in a
+    range has (NEG_INF, 0, 0)."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(B, Hkv, group * Sq, d)
+    qpos = torch.arange(Sq, device=q.device).repeat(group) + (Skv - Sq)
+    ms, ls, accs = [], [], []
+    for s0, s1 in ranges:
+        kpos = torch.arange(s0, s1, device=q.device)
+        s = torch.einsum("bhrd,bhkd->bhrk", qg, k[:, :, s0:s1].float()) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        keep = torch.ones((group * Sq, s1 - s0), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            keep &= kpos[None, :] > qpos[:, None] - window
+        s = s.masked_fill(~keep, float("-inf"))
+        m = s.amax(dim=-1).clamp(min=NEG_INF) if s1 > s0 else \
+            torch.full(qg.shape[:3], NEG_INF, device=q.device)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhrk,bhkd->bhrd", p, v[:, :, s0:s1].float()))
+    return torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2)
+
+
+def combine_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, Hq: int,
+                   Sq: int) -> torch.Tensor:
+    """Fold per-split (m, l, acc) of ``split_partials_ref``'s layout into the
+    (B, Hq, Sq, d) float32 output, as the combine kernel does: weights
+    exp(m_s - max_s m_s), splits in order, a row with nothing kept -> 0."""
+    M = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - M)
+    L = (l * w).sum(dim=2)
+    O = (acc * w[..., None]).sum(dim=2) / L.clamp(min=1e-30)[..., None]
+    B, Hkv, _, d = O.shape
+    return O.reshape(B, Hkv, Hq // Hkv, Sq, d).reshape(B, Hq, Sq, d)

@@ -12,10 +12,10 @@ a near tie: where the plain score of the kernel's id lies within that
 tolerance of the plain score at that slot.
 
 Flash attention has its own grid (``FLASH_CASES``, the cases of
-tests/test_kernels.py plus d = 128, a ragged S, decode's Sq = 1 and rows
-that causality masks entirely), each run in float32 and in bf16, and the
-JAX tests' own rule: the output within rtol = atol = 2e-3 of the plain
-version in float32, 5e-2 in bf16.
+tests/test_kernels.py plus d = 128, a ragged S, decode's Sq = 1, rows that
+causality masks entirely, and cases for each of the kernel's routes), each
+run in float32, bf16 and f16, and the JAX tests' own rule: the output within
+rtol = atol = 2e-3 of the plain version in float32, 5e-2 in bf16 and f16.
 """
 from __future__ import annotations
 
@@ -46,9 +46,18 @@ CASES = {
     "maxbatch_delta": dict(B=128, N=256, d=64, k=10,
                            delta=dict(N=40, n_dead=0)),
 }
-# on the card the grid adds a deep k: the estimators search a 10k-row sample
-# at ek up to n_sample / 4, so k runs into the thousands
-CARD_CASES = {**CASES, "deep_k": dict(B=2, N=5000, d=64, k=2048)}
+# on the card the grid adds a deep k (the estimators search a 10k-row sample
+# at ek up to n_sample / 4, so k runs into the thousands) and the scan's own
+# cuts (kernels/streaming/kernel.py: scan_grid): 64 queries over many row
+# blocks with a ragged tail, B = 65 across two query tiles, B = 1 with a
+# 2048-key list per block, and a k that shrinks the 64-query tile to 16
+CARD_CASES = {**CASES,
+              "deep_k": dict(B=2, N=5000, d=64, k=2048),
+              "b64_row_blocks": dict(B=64, N=50_003, d=96, k=100, valid_n=49_990,
+                                     n_dead=500),
+              "b65_two_tiles": dict(B=65, N=3000, d=40, k=30, n_dead=20),
+              "b1_k2048": dict(B=1, N=300_000, d=32, k=2048),
+              "b64_k300": dict(B=64, N=100_000, d=64, k=300)}
 
 TOL_REL = 1e-5
 
@@ -194,9 +203,20 @@ FLASH_CASES = {
     "decode_sq1": _flash(2, 4, 2, 1, 300, 128, window=128, softcap=50.0),
     # Sq > Skv under causal: the first rows see no kv position and give 0
     "masked_rows": _flash(1, 2, 1, 80, 40, 64),
+    # the split-KV route (Sq x group <= 64): a cache long enough for many
+    # splits, with and without a window; GQA group 4; MQA; Sq = 4
+    "split_long": _flash(2, 4, 2, 1, 5000, 128, softcap=50.0),
+    "split_long_window": _flash(2, 4, 2, 1, 5000, 128, window=1000, softcap=50.0),
+    "split_gqa4": _flash(1, 8, 2, 1, 2000, 64, window=700),
+    "split_mqa": _flash(1, 8, 1, 1, 1500, 64),
+    "split_sq4": _flash(1, 4, 2, 4, 700, 128, window=256, softcap=50.0),
+    # the tensor-core route (bf16 / f16 beyond 64 rows): >= 3 q tiles of 128
+    # with a window and Gemma-2's softcap
+    "tc_window_cap_d64": _flash(1, 2, 1, 400, 400, 64, window=160, softcap=50.0),
+    "tc_window_cap_d128": _flash(1, 2, 2, 300, 330, 128, window=100, softcap=50.0),
 }
-FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
-FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2, torch.float16: 5e-2}
+FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
 
 def flash_case_arrays(name: str):

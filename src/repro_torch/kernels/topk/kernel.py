@@ -10,8 +10,8 @@ import torch
 
 from repro_torch.kernels.common import (CHUNK, DTYPE_CODES, NEG_INF, cdiv,
                                         check_cuda_operand, check_launch, load_library,
-                                        merge_scratch_elems, neg_inf_for, ptr,
-                                        stream_ptr)
+                                        merge_fan_in, merge_scratch_elems, neg_inf_for,
+                                        ptr, stream_ptr)
 from repro_torch.kernels.topk.ref import topk_ref
 
 __all__ = ["NEG_INF", "neg_inf_for", "topk_scores"]
@@ -31,11 +31,12 @@ def topk_scores(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     if B == 0 or k_eff <= 0:
         return vals, ids
     P, Lc = cdiv(N, CHUNK), min(k_eff, CHUNK)
-    n = merge_scratch_elems(B, P, Lc, k_eff)
+    fan_in = merge_fan_in(B, P, Lc)
+    n = merge_scratch_elems(B, P, Lc, k_eff, fan_in)
     sa = torch.empty(n, dtype=torch.int64, device=dev)
     sb = torch.empty(n, dtype=torch.int64, device=dev)
     lib = load_library()
-    err = lib.mint_topk_scores(ptr(scores), B, N, k_eff, P, Lc,
+    err = lib.mint_topk_scores(ptr(scores), B, N, k_eff, P, Lc, fan_in,
                                DTYPE_CODES[scores.dtype], ptr(sa), ptr(sb),
                                ptr(vals), ptr(ids), stream_ptr(dev))
     check_launch(lib, err, "topk_scores")

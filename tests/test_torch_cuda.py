@@ -19,7 +19,7 @@ from repro_torch.kernels.parity import (CARD_CASES, FLASH_CASES, FLASH_DTYPES,
 from repro_torch.kernels.topk.kernel import topk_scores
 from repro_torch.kernels.topk.ref import topk_ref
 
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
 
 @pytest.fixture

@@ -21,13 +21,16 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models import attention as JA
 from repro.models import model as JM
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (SPLIT_MIN_KEYS, flash_attention,
+                                                      split_plan)
+from repro_torch.kernels.flash_attention.ref import (attention_ref, combine_splits,
+                                                   split_partials_ref)
 from repro_torch.kernels.parity import (FLASH_CASES, FLASH_DTYPES, FLASH_TOL,
                                         flash_case_arrays, flash_kwargs)
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 
-JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
 
 
 
@@ -168,3 +171,61 @@ def test_cpu_attention_dispatch_matches_jax():
     got = A.attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert M.NO_WINDOW == JM.NO_WINDOW
+
+
+def plan_ranges(plan):
+    """The [s0, s1) kv range of each split of ``plan``, as the split kernel
+    cuts them (split s starts at kv_begin + s * chunk)."""
+    if plan.chunk == 0:
+        return [(plan.kv_begin, plan.kv_begin)]
+    return [(s, min(s + plan.chunk, plan.kv_end))
+            for s in range(plan.kv_begin, plan.kv_end, plan.chunk)]
+
+
+SPLIT_CASES = ["decode_sq1", "split_long", "split_long_window", "split_gqa4",
+               "split_mqa", "split_sq4", "gqa_causal", "masked_rows"]
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_combine_splits_matches_refs(name):
+    """The split-KV route's arithmetic, plainly: per-split (m, l, acc) over the
+    planned kv ranges, folded by ``combine_splits``, equal the plain version
+    and JAX's reference in float32."""
+    (jq, jk, jv), (q, k, v) = _sides(name, "f32")
+    kw = flash_kwargs(name)
+    c = FLASH_CASES[name]
+    plan = split_plan(c["B"], c["Hkv"], c["Sq"], c["Skv"], kw["causal"], kw["window"])
+    got = combine_splits(*split_partials_ref(q, k, v, plan_ranges(plan), **kw), c["Hq"], c["Sq"])
+    np.testing.assert_allclose(got.numpy(), attention_ref(q, k, v, **kw).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(jax_attention_ref(jq, jk, jv, **kw))
+    reached = ~np.isnan(want).any(-1)
+    _assert_close(got[torch.as_tensor(reached)], jnp.asarray(want[reached]), "f32", name)
+    assert not got[torch.as_tensor(~reached)].any()
+
+
+@pytest.mark.parametrize("B,Hkv,Sq,Skv,causal,window", [
+    (2, 16, 1, 8193, True, 1 << 30), (2, 16, 1, 8193, True, 4096), (1, 1, 1, 5, True, 0),
+    (2, 2, 4, 700, True, 256), (1, 8, 2, 100_000, False, 0), (1, 2, 80, 40, True, 0),
+    (4, 8, 1, 129, True, 64)])
+def test_split_plan_covers_kept_range_once(B, Hkv, Sq, Skv, causal, window):
+    """The splits cover the kv range some q row keeps exactly once, in order,
+    with no empty split, and give the card at least two blocks per SM where
+    the range has the keys for it."""
+    plan = split_plan(B, Hkv, Sq, Skv, causal, window)
+    qpos = np.arange(Sq) + Skv - Sq
+    kept = np.zeros(Skv, dtype=bool)
+    for p in qpos:
+        lo = max(p - window + 1, 0) if window > 0 else 0
+        kept[lo:(min(p, Skv - 1) if causal else Skv - 1) + 1] = True
+    ranges = plan_ranges(plan)
+    assert len(ranges) == plan.n_splits
+    if not kept.any():
+        assert ranges == [(plan.kv_begin, plan.kv_begin)]
+        return
+    assert (ranges[0][0], ranges[-1][1]) == (kept.argmax(), Skv - kept[::-1].argmax())
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(s1 > s0 for s0, s1 in ranges)
+    n_kv = ranges[-1][1] - ranges[0][0]
+    assert (B * Hkv * plan.n_splits >= 2 * 132
+            or plan.n_splits == -(-n_kv // SPLIT_MIN_KEYS))

@@ -26,6 +26,7 @@ from repro_torch.kernels.common import NEG_INF, neg_inf_for
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ops import fused_scan
 from repro_torch.kernels.parity import CASES, case_arrays, to_torch
+from repro_torch.kernels.streaming import kernel as streaming_kernel
 from repro_torch.kernels.streaming.ops import streaming_fused_scan
 from repro_torch.kernels.topk.kernel import topk_scores
 
@@ -188,14 +189,49 @@ def test_kernel_build_targets_sm90a_one_compile_per_source(tmp_path):
 
 
 @pytest.mark.parametrize("B,P,Lc,k", [(1, 1, 10, 10), (3, 5, 100, 100),
-                                      (2, 3, 1024, 2500), (64, 977, 128, 128)])
+                                      (2, 3, 1024, 2500), (64, 977, 128, 128),
+                                      (1, 261, 100, 100), (64, 131, 100, 100)])
 def test_merge_scratch_covers_every_round(B, P, Lc, k):
     """The scratch buffers hold the partial lists and every merge round's
-    output, and the rounds end at one list of exactly k keys."""
-    scratch = common.merge_scratch_elems(B, P, Lc, k)
+    output at the fan-in the wrappers pick, and the rounds end at one list
+    of exactly k keys."""
+    fan_in = common.merge_fan_in(B, P, Lc)
+    assert fan_in == (8 if B * P * Lc <= 1 << 17 else 2)
+    scratch = common.merge_scratch_elems(B, P, Lc, k, fan_in)
     assert B * P * Lc <= scratch
     L = Lc
     while P > 1:
-        P, L = (P + 1) // 2, min(k, 2 * L)
+        P, L = -(-P // fan_in), min(k, fan_in * L)
         assert B * P * L <= scratch
     assert L == k
+
+
+@pytest.mark.parametrize("B,Nb,Nd,k", [(64, 1_000_000, 0, 100), (1, 1_000_000, 0, 100),
+                                       (1, 10_000, 0, 2500), (2, 5000, 0, 2048),
+                                       (65, 3000, 0, 30), (128, 256, 40, 10),
+                                       (1, 520, 70, 50), (64, 100_000, 0, 300),
+                                       (1, 300_000, 0, 2048), (3, 2_000_000, 7, 20_000)])
+def test_scan_grid_covers_every_row_once(B, Nb, Nd, k):
+    """The scan's grid: its row blocks cover each source's rows once, in
+    order; the query tiles cover B; each block's list holds its min(k, rows)
+    keys in a power of two; the lists fit the shared-memory budget; and the
+    merge scratch covers its P lists down to k."""
+    g = streaming_kernel.scan_grid(B, Nb, Nd, k)
+    rb = g.rows_per_block
+    blocks = ([(0, r, min(r + rb, Nb)) for r in range(0, Nb, rb)]
+              + [(1, r, min(r + rb, Nd)) for r in range(0, Nd, rb)])
+    assert len(blocks) == g.P and sum(src == 0 for src, _, _ in blocks) == g.base_blocks
+    for src, n in ((0, Nb), (1, Nd)):
+        spans = [(r0, r1) for s, r0, r1 in blocks if s == src]
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # contiguous
+        assert (spans[0][0], spans[-1][1]) == (0, n) if n else spans == []
+        assert all(0 < r1 - r0 <= g.rows_per_block for r0, r1 in spans)
+    assert g.rows_per_block % streaming_kernel.ROW_TILE == 0
+    assert g.qt in streaming_kernel.QUERY_TILES and g.n_qtiles == -(-B // g.qt)
+    assert (g.n_qtiles - 1) * g.qt < B <= g.n_qtiles * g.qt
+    assert g.lc == min(k, g.rows_per_block) <= g.lpad < 2 * g.lc + 1
+    assert g.lpad & (g.lpad - 1) == 0 and g.cap & (g.cap - 1) == 0 and g.cap <= g.lpad
+    assert g.qt * (g.lpad + g.cap) * 8 <= streaming_kernel.LIST_BYTES
+    fan_in = common.merge_fan_in(B, g.P, g.lc)
+    scratch = common.merge_scratch_elems(B, g.P, g.lc, min(k, Nb + Nd), fan_in)
+    assert B * g.P * g.lc <= scratch
