@@ -9,9 +9,13 @@ into ``build/kernels/``), then:
   1. environment: the card, its power limit, CUDA, nvcc, the build time;
   2. each kernel against its plain PyTorch version on the card, over the
      parity grids of ``repro_torch.kernels.parity`` and their tolerance
-     rules: the scan, distance and top-k grid (ragged cases, a deep
-     k = 2048, and the scan's own cuts: many row blocks, two query tiles,
-     a 2048-key list, a shrunk query tile; x metrics x f32/bf16/f16), then
+     rules: the top-k cases (rising scores, ties, NEG_INF tails, k beyond
+     the live columns, 1e6 columns, k = 2048, odd N in f16 / bf16 / f32),
+     equal to the plain version; the scan, distance and top-k grid (ragged
+     cases, a deep k = 2048, and the scan's own cuts: many row blocks, two
+     query tiles, a 2048-key list, a shrunk query tile; x metrics x
+     f32/bf16/f16), where the two-pass scan must also equal the streaming
+     scan bit for bit; then
      the flash-attention grid (MHA, GQA, MQA, causal or not, window x
      softcap, d = 128 on a ragged S, Sq = 1, fully masked rows, long split
      decodes, tensor-core tiles; x f32/bf16/f16), which must run all three
@@ -28,7 +32,9 @@ into ``build/kernels/``), then:
   4. each kernel against its plain version again, and timed (device time:
      CUDA events around each call behind a busy stream, median of 20)
      beside the plain version, one PyTorch library call and the bound, at
-     those main-path shapes;
+     those main-path shapes; the two-pass scan bit-equal to the streaming
+     scan at B = 1 and 64 over the 1,000,000-row column, and timed; top-k
+     also at its worst case (scores rising along each row);
   5. the same path on the CPU and on the card at the serving-test scale
      (2,500 rows): configuration, plans, numDist, costs and ids must agree;
   6. the model substrate's serving path at Gemma-2-27B's full width and
@@ -77,9 +83,6 @@ MODEL = "gemma2-27b"
 PROMPTS, PROMPT_LEN, DECODE_STEPS = 2, 8192, 16
 # the JAX suite's prefill-vs-decode tolerance (tests/test_arch_smoke.py)
 LOGIT_RTOL, LOGIT_ATOL = 0.15, 0.35
-# torch.cuda._sleep spins for a count of SM clock cycles; 2e9 a second is at
-# or above the card's clock, so a sleep lasts at least the time asked for
-SLEEP_CYCLES_PER_S = 2e9
 
 
 class SmokeFailure(Exception):
@@ -125,37 +128,19 @@ def bound(bytes_moved: float, flops: float, peaks, rate: str = "fp32"
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """The device time of one call of ``fn`` (ms): the median over ``reps``
-    calls, each between two CUDA events. The stream is first held busy
-    (``torch.cuda._sleep``) for longer than the host takes to enqueue the
-    call, so the events time the device's work and not the Python around
-    the launches (a call's host time exceeds a decode-size kernel's)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    cycles = int(SLEEP_CYCLES_PER_S * (3 * host_s + 1e-3))
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(cycles)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """The device time of one call of ``fn`` (ms), median of ``reps``, behind
+    a busy stream (``repro_torch.launch.kernel_bench.cuda_ms``)."""
+    from repro_torch.launch.kernel_bench import cuda_ms as device_ms
+    return device_ms(fn, reps=reps, warmup=warmup)
 
 
 # ---- kernel vs plain ----------------------------------------------------------
 
 
 def phase_kernel_grid(dev, errs: dict) -> None:
-    from repro_torch.kernels.parity import CARD_CASES, check_case
+    from repro_torch.kernels.parity import CARD_CASES, TOPK_CASES, check_case, check_topk_case
+    for name in TOPK_CASES:
+        emit("topk_grid", case=name, **TOPK_CASES[name], slots_equal=check_topk_case(name, dev))
     for name in CARD_CASES:
         for metric in ("dot", "cosine", "l2"):
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -354,16 +339,17 @@ def phase_main_path(rows: int, dev) -> dict:
 
 
 def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
-    from repro_torch.kernels.distance.kernel import batched_scores
-    from repro_torch.kernels.distance.ops import _mask_rows
+    from repro_torch.kernels.distance.kernel import batched_scores, distance_tiles
+    from repro_torch.kernels.distance.ops import _mask_rows, fused_scan
     from repro_torch.kernels.distance.ref import batched_scores_ref
     from repro_torch.kernels.parity import check_scores, check_topk, combined_plain_scores
     from repro_torch.kernels.streaming.kernel import scan_grid
     from repro_torch.kernels.streaming.ops import streaming_fused_scan
     from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
-    from repro_torch.kernels.topk.kernel import topk_scores
+    from repro_torch.kernels.topk.kernel import topk_grid, topk_scores
     from repro_torch.kernels.topk.ref import topk_ref
     col, qmat, k = main["col"], main["qmat"], main["k"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     N, d = col.n_rows, col.padded_dim
     rows = []
 
@@ -378,10 +364,16 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
         return dict(achieved_tflops=flops / ms / 1e9, achieved_gbps=nbytes / ms / 1e6)
 
     # streaming scan over the burst's resident column: the flat burst's
-    # dispatch (B = 64) and a single query
+    # dispatch (B = 64) and a single query; the two-pass scan (distance ->
+    # mask -> top-k) must give its values and ids bit for bit, and is timed
+    # beside it
     for B in (1, 64):
         q = qmat[:B].contiguous()
         vals, ids = streaming_fused_scan(q, col.data, k=k, valid_n=N)
+        v2, i2 = fused_scan(q, col.data, k=k, valid_n=N)
+        check(torch.equal(v2, vals) and torch.equal(i2, ids),
+              f"two-pass scan differs from the streaming scan at B={B}")
+        two_pass_ms = cuda_ms(lambda: fused_scan(q, col.data, k=k, valid_n=N))
         rvals, rids = streaming_fused_scan_ref(q, col.data, k, valid_n=N)
         full = combined_plain_scores(q, col.data, "dot", dict(valid_n=N))
         e, swaps = check_topk(vals, ids, rvals, rids, full, d, f"streaming at B={B}")
@@ -394,6 +386,7 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
         grid = scan_grid(B, col.data.shape[0], 0, k,
                          torch.cuda.get_device_properties(dev).multi_processor_count)
         extra = dict(**rates(flops, nbytes, ms), near_tie_swaps=swaps,
+                     two_pass_equal=True, two_pass_ms=two_pass_ms,
                      grid=dict(query_tile=grid.qt, query_tiles=grid.n_qtiles,
                                rows_per_block=grid.rows_per_block, blocks=grid.P,
                                list_len=grid.lc))
@@ -428,37 +421,48 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
         lib = cuda_ms(lambda: q @ x.T)
         nbytes, flops = 4 * (B * dd + n * dd + B * n), 2.0 * B * n * dd
         b = bound(nbytes, flops, peaks)
+        t = distance_tiles(B, n, dd, sms)
+        tiles = dict(tile=[t.bm, t.bn], thread_tile=t.tm, blocks=t.blocks)
         if label == "rerank":
             row("batched_scores", "cuda", "src/repro_torch/csrc/distance.cu",
                 "src/repro/kernels/distance/kernel.py:23", [B, n, dd], ms, plain, lib, b,
-                **rates(flops, nbytes, ms))
+                **rates(flops, nbytes, ms), **tiles)
         emit("kernel_time", name="batched_scores", route="cuda", dispatch=label,
              shape=[B, n, dd], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
-             bound_by=b[1], max_abs_err=de, **rates(flops, nbytes, ms))
+             bound_by=b[1], max_abs_err=de, **rates(flops, nbytes, ms), **tiles)
 
     # top-k over the two-pass flat scan's masked (B, N) scores at its own k,
-    # as fused_scan computes them, then at the nominal k = 128
+    # as fused_scan computes them, then at the nominal k = 128, then at the
+    # threshold's worst case: scores rising along each row (every key
+    # survives the threshold), at the same shape and k
     flat = disp["flat_two_pass"]
     scores = _mask_rows(batched_scores_ref(flat["qmat"], flat["rows"]()), flat["valid_n"])
     B, n = scores.shape
-    for kk in (min(flat["k"], flat["valid_n"]), 128):
-        tv, ti = topk_scores(scores, kk)
-        tr, tri = topk_ref(scores, kk)
+    k_path = min(flat["k"], flat["valid_n"])
+    rising = torch.arange(n, device=dev, dtype=torch.float32).expand(B, n).contiguous()
+    for label, s_in, kk in (("flat_two_pass", scores, k_path), ("nominal", scores, 128),
+                            ("ascending_worst_case", rising, k_path)):
+        tv, ti = topk_scores(s_in, kk)
+        tr, tri = topk_ref(s_in, kk)
         check(torch.equal(tv, tr) and torch.equal(ti, tri),
-              f"top-k differs at ({B}, {n}, {kk})")
-        ms = cuda_ms(lambda: topk_scores(scores, kk))
-        plain = cuda_ms(lambda: topk_ref(scores, kk))
-        lib = cuda_ms(lambda: torch.topk(scores, kk, dim=1))
-        nbytes = 4 * scores.numel() + 8 * B * kk
+              f"top-k differs at {label} ({B}, {n}, {kk})")
+        ms = cuda_ms(lambda: topk_scores(s_in, kk))
+        plain = cuda_ms(lambda: topk_ref(s_in, kk))
+        lib = cuda_ms(lambda: torch.topk(s_in, kk, dim=1))
+        nbytes = 4 * s_in.numel() + 8 * B * kk
         b = bound(nbytes, 0.0, peaks)
-        if kk == 128:
-            emit("kernel_time", name="topk_scores", route="cuda", dispatch="nominal",
-                 shape=[B, n, kk], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
-                 bound_by=b[1], **rates(0.0, nbytes, ms))
-        else:
+        g = topk_grid(B, n, kk, sms)
+        grid = dict(grid=dict(blocks_per_row=g.blocks_per_row, cols_per_block=g.cols_per_block,
+                              list_len=g.lc, list_pad=g.lpad, cand_cap=g.cap))
+        if label == "flat_two_pass":
             row("topk_scores", "cuda", "src/repro_torch/csrc/topk.cu",
                 "src/repro/kernels/topk/kernel.py:42", [B, n, kk], ms, plain, lib, b,
-                **rates(0.0, nbytes, ms))
+                **rates(0.0, nbytes, ms), **grid)
+        else:
+            emit("kernel_time", name="topk_scores", route="cuda", dispatch=label,
+                 shape=[B, n, kk], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+                 bound_by=b[1], **rates(0.0, nbytes, ms), **grid)
+    del rising
     return rows
 
 
@@ -871,7 +875,9 @@ def main() -> int:
     lib = common.load_library()
     emit("environment", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc, device=torch.cuda.get_device_name(0),
-         kernel_library=Path(lib._name).name, build_s=time.perf_counter() - t0)
+         kernel_library=Path(lib._name).name, build_s=time.perf_counter() - t0,
+         ptxas=common.ptxas_report(("scan_kernel", "distance_kernel", "topk_select",
+                                    "flash")))
     peaks = card_peaks(card)
     errs = {"streaming_fused_scan": 0.0, "batched_scores": 0.0, "topk_scores": 0.0,
             "flash_attention": 0.0}

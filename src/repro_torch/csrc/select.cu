@@ -92,5 +92,3 @@ cudaError_t mint_merge_finalize(u64* a, u64* b, int B, int P, int L, int k, int 
 extern "C" const char* mint_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
-
-extern "C" int mint_chunk_rows() { return MINT_CHUNK; }

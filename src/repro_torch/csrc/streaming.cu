@@ -41,13 +41,16 @@
 //   lists (max against the reversed buffer, then a bitonic merge), which
 //   raises the thresholds. Exact: a key under the block's Lc-th key cannot
 //   reach the final top-k, and keys are totally ordered, so neither the
-//   order of appends nor block scheduling changes the result.
+//   order of appends nor block scheduling changes the result. The append
+//   and the fold are select.cuh's `append_above` and `flush_lists`, which
+//   the top-k kernel shares; the row staging is stage.cuh's, which the
+//   distance kernel shares.
 // - Each block writes its sorted best Lc = min(k, rb) keys; select.cu's
 //   merge folds the P lists by rank, a fixed result.
 // What bounds it now: at B = 64 the FP32 FMA issue rate (selection and
 // merge are a few percent once the lists fill); at B = 1 the row read.
-#include "cp_async.cuh"
 #include "select.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -101,95 +104,6 @@ __device__ __forceinline__ int qidx(int i, int ty) {
   else return i;
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& r, int w) {
-  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-}
-// element v of 16 loaded bytes of T, as float32 (exact)
-__device__ __forceinline__ float lane_val(const uint4& r, int v, const float*) {
-  return __uint_as_float(word(r, v));
-}
-__device__ __forceinline__ float lane_val(const uint4& r, int v, const __nv_bfloat16*) {
-  const uint32_t w = word(r, v >> 1);
-  return __uint_as_float((v & 1) ? (w & 0xffff0000u) : (w << 16));
-}
-__device__ __forceinline__ float lane_val(const uint4& r, int v, const __half*) {
-  const uint32_t w = word(r, v >> 1);
-  return __half2float(__ushort_as_half((unsigned short)((v & 1) ? (w >> 16) : (w & 0xffffu))));
-}
-
-// 128 bytes (from byte cb0 of each row) of rows r0 .. r0+255 into dst, zero
-// past row `rend` or the row's end; VB-byte pieces (cp.async, or plain
-// 2-byte copies when the rows are only 2-byte aligned)
-template <int VB, int THREADS, int ROW_BYTES>
-__device__ __forceinline__ void stage_rows(unsigned char* dst, const char* rows,
-                                           size_t rbytes, int r0, int rend, size_t cb0) {
-  constexpr int PER_ROW = ROW_BYTES / VB, RSTRIDE = ROW_BYTES + 16;
-  for (int e = threadIdx.x; e < RT * PER_ROW; e += THREADS) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * VB;
-    const size_t cb = cb0 + c;
-    const bool ok = r0 + r < rend && cb < rbytes;
-    const char* g = ok ? rows + (size_t)(r0 + r) * rbytes + cb : rows;
-    if constexpr (VB == 2) {
-      *reinterpret_cast<unsigned short*>(dst + r * RSTRIDE + c) =
-          ok ? *reinterpret_cast<const unsigned short*>(g) : (unsigned short)0;
-    } else {
-      cp_async<VB>(dst + r * RSTRIDE + c, g, ok);
-    }
-  }
-}
-
-// Fold every non-empty candidate buffer into its query's sorted list: sort
-// the buffer (descending), take max(list[i], buf[Lpad-1-i]) -- a bitonic
-// sequence holding the best Lpad of both -- and bitonic-merge it. Block-wide.
-template <int QT>
-__device__ void flush(u64* list, u64* cand, int* cnt, int Lpad, int cap) {
-  constexpr int THREADS = Layout<QT>::THREADS;
-  const int lc = __ffs(cap) - 1, ll = __ffs(Lpad) - 1;
-  for (int e = threadIdx.x; e < QT * cap; e += THREADS)
-    if ((e & (cap - 1)) >= cnt[e >> lc]) cand[e] = 0ull;
-  __syncthreads();
-  for (int size = 2; size <= cap; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < QT * cap / 2; p += THREADS) {
-        const int r = p >> (lc - 1), j = p & (cap / 2 - 1);
-        if (cnt[r] == 0) continue;
-        const int i = 2 * stride * (j / stride) + (j % stride);
-        u64* row = cand + (r << lc);
-        const u64 a = row[i], b = row[i + stride];
-        if (((i & size) == 0) ? (a < b) : (a > b)) {
-          row[i] = b;
-          row[i + stride] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int e = threadIdx.x; e < QT * cap; e += THREADS) {
-    const int r = e >> lc, i = e & (cap - 1);
-    if (cnt[r] == 0) continue;
-    u64* dst = list + (r << ll) + Lpad - cap + i;
-    const u64 c = cand[(r << lc) + cap - 1 - i];
-    if (c > *dst) *dst = c;
-  }
-  __syncthreads();
-  for (int stride = Lpad >> 1; stride > 0; stride >>= 1) {
-    for (int p = threadIdx.x; p < QT * Lpad / 2; p += THREADS) {
-      const int r = p >> (ll - 1), j = p & (Lpad / 2 - 1);
-      if (cnt[r] == 0) continue;
-      const int i = 2 * stride * (j / stride) + (j % stride);
-      u64* row = list + (r << ll);
-      const u64 a = row[i], b = row[i + stride];
-      if (a < b) {
-        row[i] = b;
-        row[i + stride] = a;
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < QT; e += THREADS) cnt[e] = 0;
-  __syncthreads();
-}
-
 template <typename T, int QT>
 __global__ void __launch_bounds__(Layout<QT>::THREADS, 1) scan_kernel(const Params p) {
   using L = Layout<QT>;
@@ -222,12 +136,7 @@ __global__ void __launch_bounds__(Layout<QT>::THREADS, 1) scan_kernel(const Para
     float* qs = reinterpret_cast<float*>(xs + RT * RSTRIDE);
     const int r0 = rb0 + (s / nk) * RT, c0 = (s % nk) * KT;
     const size_t cb0 = (size_t)c0 * sizeof(T);
-    switch (p.vb) {
-      case 16: stage_rows<16, THREADS, ROW_BYTES>(xs, rows, rbytes, r0, rb1, cb0); break;
-      case 8: stage_rows<8, THREADS, ROW_BYTES>(xs, rows, rbytes, r0, rb1, cb0); break;
-      case 4: stage_rows<4, THREADS, ROW_BYTES>(xs, rows, rbytes, r0, rb1, cb0); break;
-      default: stage_rows<2, THREADS, ROW_BYTES>(xs, rows, rbytes, r0, rb1, cb0); break;
-    }
+    stage_rows_vb<THREADS, ROW_BYTES, RT>(p.vb, xs, rows, rbytes, r0, rb1, cb0);
     constexpr int QC = QTP / 4;
     for (int e = tid; e < KT * QC; e += THREADS) {
       const int kk = e / QC, c = (e % QC) * 4;
@@ -324,30 +233,15 @@ __global__ void __launch_bounds__(Layout<QT>::THREADS, 1) scan_kernel(const Para
           if (qok && live[j] && (first || ((pend >> bit) & 1ull)))
             key = make_key(metric_epilogue(p.metric, acc[i][j], qn[i], xn[j]),
                            src.id_offset + r0 + tx + j * TX);
-          const bool pass = key > thr[i];
-          const unsigned m = __ballot_sync(0xffffffffu, pass);
-          if (m == 0u) {
-            pend &= ~(1ull << bit);
-            continue;
-          }
-          const int leader = __ffs(m) - 1;
-          int slot0 = 0;
-          if (lane == leader) slot0 = atomicAdd(cnt + qi, __popc(m));
-          const int slot = __shfl_sync(0xffffffffu, slot0, leader) +
-                           __popc(m & ((1u << lane) - 1u));
-          if (pass && slot < p.cap) {
-            cand[qi * p.cap + slot] = key;
-            pend &= ~(1ull << bit);
-          } else if (pass) {
+          if (append_above(key, thr[i], cand + qi * p.cap, cnt + qi, p.cap, lane))
             pend |= 1ull << bit;
-          } else {
+          else
             pend &= ~(1ull << bit);
-          }
         }
       }
       __syncthreads();
       if (!__syncthreads_or(tid < QT && cnt[tid] >= p.cap)) break;
-      flush<QT>(list, cand, cnt, p.Lpad, p.cap);
+      flush_lists<QT, THREADS>(list, cand, cnt, p.Lpad, p.cap);
 #pragma unroll
       for (int i = 0; i < TM; ++i) thr[i] = list[qidx<QT>(i, ty) * p.Lpad + p.Lc - 1];
       first = false;
@@ -356,7 +250,8 @@ __global__ void __launch_bounds__(Layout<QT>::THREADS, 1) scan_kernel(const Para
   }
 
   __syncthreads();
-  if (__syncthreads_or(tid < QT && cnt[tid] > 0)) flush<QT>(list, cand, cnt, p.Lpad, p.cap);
+  if (__syncthreads_or(tid < QT && cnt[tid] > 0))
+    flush_lists<QT, THREADS>(list, cand, cnt, p.Lpad, p.cap);
   for (int e = tid; e < QT * p.Lc; e += THREADS) {
     const int r = e / p.Lc, i = e % p.Lc;
     const int gq = q0 + r;

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,16 +26,14 @@ NEG_INF = float(-3.0e38)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -Xptxas=-v: ptxas reports each kernel's registers and spills; the build
+# keeps that report beside the library (``ptxas_report``)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # streaming multiprocessors of an H100 SXM: the grid planners' default when
 # no device is asked (the wrappers pass the card's own count)
 H100_SMS = 132
-
-# rows (or score columns) one block of the top-k kernel sorts;
-# must equal MINT_CHUNK in csrc/select.cuh (checked when the library loads)
-CHUNK = 1024
 
 
 def pad_to(x: torch.Tensor, axis: int, multiple: int, value=0.0) -> torch.Tensor:
@@ -50,6 +49,10 @@ def pad_to(x: torch.Tensor, axis: int, multiple: int, value=0.0) -> torch.Tensor
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
 def neg_inf_for(dtype) -> float:
@@ -146,19 +149,45 @@ def build_library() -> Path:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for cmd in compiles]
-        failures = []
+        failures, reports = [], []
         for cmd, proc in zip(compiles, procs):
             out, _ = proc.communicate()
+            reports.append(out)
             if proc.returncode != 0:
                 failures.append(f"{' '.join(cmd)}\n{out}")
         if failures:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        lib.with_suffix(".ptxas.txt").write_text("".join(reports))
         res = subprocess.run(link, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"kernel link failed:\n{' '.join(link)}\n{res.stdout}")
         os.replace(staged, lib)  # atomic: a reader never sees half a library
     return lib
+
+
+def ptxas_report(names: tuple[str, ...]) -> dict[str, list[dict]]:
+    """Registers and spill bytes of each compiled kernel whose mangled name
+    holds one of ``names``, from the ptxas report of the last build."""
+    path = library_path().with_suffix(".ptxas.txt")
+    out: dict[str, list[dict]] = {n: [] for n in names}
+    entry = None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = dict(kernel=m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry is not None:
+            entry.update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+            for n in names:
+                if n in entry["kernel"]:
+                    out[n].append(entry)
+            entry = None
+    return out
 
 
 _P = ctypes.c_void_p
@@ -168,8 +197,8 @@ _F = ctypes.c_float
 
 # C entry points: name -> argument types (every one returns a cudaError_t)
 _SIGNATURES = {
-    "mint_batched_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mint_topk_scores": [_P] + [_I] * 7 + [_P] * 5,
+    "mint_batched_scores": [_P] * 5 + [_I] * 9 + [_P],
+    "mint_topk_scores": [_P] + [_I] * 11 + [_P] * 5,
     "mint_streaming_scan": [_P] * 10 + [_I] * 21 + [_P] * 5,
     "mint_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _F, _I]
                             + [_I] * 4 + [_P] * 4,
@@ -186,10 +215,6 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mint_error_string.argtypes = [ctypes.c_int]
     lib.mint_error_string.restype = ctypes.c_char_p
-    lib.mint_chunk_rows.argtypes = []
-    lib.mint_chunk_rows.restype = ctypes.c_int
-    if lib.mint_chunk_rows() != CHUNK:
-        raise RuntimeError(f"csrc chunk size {lib.mint_chunk_rows()} != {CHUNK}")
     return lib
 
 
@@ -222,6 +247,16 @@ def check_cuda_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def copy_bytes(*rows: torch.Tensor) -> int:
+    """Widest copy (16, 8, 4 or 2 bytes) that every row of every (n, w)
+    tensor starts on."""
+    for vb in (16, 8, 4, 2):
+        if all(t.data_ptr() % vb == 0 and (t.shape[1] * t.element_size()) % vb == 0
+               for t in rows):
+            return vb
+    raise ValueError("rows are not 2-byte aligned")
 
 
 # lists a merge round folds (csrc/select.cu: merge_rank_kernel): each key

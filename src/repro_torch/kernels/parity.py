@@ -24,8 +24,9 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import NEG_INF, pad_to
+from repro_torch.kernels.common import NEG_INF, neg_inf_for, pad_to
 from repro_torch.kernels.distance.kernel import batched_scores
+from repro_torch.kernels.distance.ops import fused_scan
 from repro_torch.kernels.distance.ref import batched_scores_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -154,10 +155,32 @@ def check_topk(vals, ids, rvals, rids, plain_full, d: int, what: str
     return err, swaps
 
 
+def two_pass_scan(q, db, k: int, metric: str, kw: dict, bn: int = 128):
+    """The two-pass scan (distance kernel -> mask -> top-k kernel,
+    ``fused_scan``) over the streaming scan's combined id space: the base
+    rows padded to ``bn``, then the delta rows; padding, rows past each
+    source's valid count and dead rows masked. ``k`` is the streaming scan's
+    (already clamped), so both return the same slots."""
+    def dead(n, valid, mask):
+        bad = torch.arange(n, device=q.device) >= (n if valid is None else valid)
+        return bad if mask is None else bad | mask
+
+    rows, bad = db, dead(db.shape[0], kw.get("valid_n"), kw.get("dead_mask"))
+    if kw.get("delta") is not None:
+        delta = kw["delta"]
+        rows = torch.cat([pad_to(db, 0, bn), delta])
+        bad = torch.cat([pad_to(bad, 0, bn, value=True),
+                         dead(delta.shape[0], kw.get("delta_valid_n"),
+                              kw.get("delta_dead_mask"))])
+    return fused_scan(q, rows, k=k, metric=metric, dead_mask=bad)
+
+
 def check_case(name: str, metric: str, dtype, device) -> dict:
     """Every kernel against its plain version on grid case ``name``: the
     streaming scan, the distance kernel, and top-k over the plain scores
-    (exact: both select from identical scores by the same rule)."""
+    (exact: both select from identical scores by the same rule). Then the
+    contract between the scans: the two-pass scan (distance -> mask ->
+    top-k) gives the streaming scan's ids and values bit for bit."""
     case = CARD_CASES[name]
     d, k = case["d"], case["k"]
     what = f"{name}/{metric}/{str(dtype).removeprefix('torch.')}"
@@ -174,9 +197,65 @@ def check_case(name: str, metric: str, dtype, device) -> dict:
     tr, tri = topk_ref(rs.to(dtype), k)
     if not (torch.equal(tv, tr) and torch.equal(ti, tri)):
         raise ParityError(f"topk {what} differs from its plain version")
+    v2, i2 = two_pass_scan(q, db, min(k, n_tot), metric, kw)
+    if not (torch.equal(v2, vals) and torch.equal(i2, ids)):
+        raise ParityError(f"two-pass scan {what} differs from the streaming scan")
     return dict(streaming_max_abs_err=scan_err, near_tie_swaps=swaps,
                 distance_max_abs_err=dist_err, topk_equal=True,
-                tol_rel=tolerance(d))
+                two_pass_equals_streaming=True, tol_rel=tolerance(d))
+
+
+# ---- top-k -------------------------------------------------------------------------
+
+# the top-k kernel's own cases, each held equal (torch.equal) to topk_ref:
+# scores rising along the row (every key beats the threshold: the worst
+# case), all scores equal (ties broken by id across blocks), a tail of
+# NEG_INF columns, k beyond the live columns, a single row of 1e6, a deep
+# k = 2048, and f16 / bf16 / f32 rows of odd N (2- and 4-byte loads)
+TOPK_CASES = {
+    "ascending": dict(B=4, N=300_000, k=100, kind="ascending"),
+    "all_equal": dict(B=3, N=100_000, k=100, kind="equal"),
+    "neg_inf_tail": dict(B=5, N=50_000, k=100, kind="tail", live=20_000),
+    "k_gt_live": dict(B=3, N=20_000, k=100, kind="tail", live=50),
+    "b1_1m": dict(B=1, N=1_000_000, k=100),
+    "deep_k": dict(B=2, N=300_000, k=2048),
+    "odd_n_bf16": dict(B=3, N=100_001, k=64, dtype="bf16"),
+    "odd_n_f16": dict(B=3, N=100_001, k=64, dtype="f16"),
+    "odd_n_f32": dict(B=3, N=100_001, k=64),
+}
+TOPK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def topk_case_scores(name: str, device="cpu") -> torch.Tensor:
+    """(B, N) scores of top-k case ``name`` in its dtype; random ones come
+    from numpy seeded with the case's position in ``sorted(TOPK_CASES)``."""
+    c = TOPK_CASES[name]
+    B, N = c["B"], c["N"]
+    dtype = TOPK_DTYPES[c.get("dtype", "f32")]
+    kind = c.get("kind", "random")
+    if kind == "ascending":
+        s = np.broadcast_to(np.arange(N, dtype=np.float32) / N, (B, N))
+    elif kind == "equal":
+        s = np.ones((B, N), dtype=np.float32)
+    else:
+        rng = np.random.default_rng(sorted(TOPK_CASES).index(name))
+        s = rng.standard_normal((B, N)).astype(np.float32)
+    t = torch.as_tensor(np.ascontiguousarray(s), device=device).to(dtype)
+    if kind == "tail":
+        t[:, c["live"]:] = neg_inf_for(dtype)
+    return t
+
+
+def check_topk_case(name: str, device) -> int:
+    """The top-k kernel equal to its plain version on case ``name``;
+    returns the number of slots compared."""
+    s = topk_case_scores(name, device)
+    k = TOPK_CASES[name]["k"]
+    vals, ids = topk_scores(s, k)
+    rvals, rids = topk_ref(s, k)
+    if not (torch.equal(vals, rvals) and torch.equal(ids, rids)):
+        raise ParityError(f"topk {name} differs from its plain version")
+    return ids.numel()
 
 
 # ---- flash attention -----------------------------------------------------------

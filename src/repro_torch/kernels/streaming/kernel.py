@@ -14,8 +14,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.common import (DTYPE_CODES, H100_SMS, METRIC_CODES, cdiv,
-                                        check_cuda_operand, check_launch, load_library,
-                                        merge_fan_in, merge_scratch_elems, ptr, stream_ptr)
+                                        check_cuda_operand, check_launch, copy_bytes,
+                                        load_library, merge_fan_in, merge_scratch_elems,
+                                        pow2_at_least, ptr, stream_ptr)
 from repro_torch.kernels.distance.ops import fit_mask
 from repro_torch.kernels.distance.ref import squared_norms
 
@@ -24,10 +25,6 @@ QUERY_TILES = (64, 16, 4, 1)
 ROW_TILE = 256             # rows per staged tile; a block's range is a multiple
 LIST_BYTES = 96 * 1024     # shared memory for a query tile's lists and buffers
 MAX_LIST = 8192            # longest per-query list a block keeps
-
-
-def _pow2_at_least(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
 
 
 @dataclass(frozen=True)
@@ -65,7 +62,7 @@ def scan_grid(B: int, Nb: int, Nd: int, k: int, sm_count: int = H100_SMS) -> Sca
     if k > MAX_LIST:
         rb = min(rb, MAX_LIST)
     lc = min(k, rb)
-    lpad = _pow2_at_least(lc)
+    lpad = pow2_at_least(lc)
     cap = min(lpad, max(64, lpad // 8))
     while qt > 1 and qt * (lpad + cap) * 8 > LIST_BYTES:
         qt = QUERY_TILES[QUERY_TILES.index(qt) + 1]
@@ -73,16 +70,6 @@ def scan_grid(B: int, Nb: int, Nd: int, k: int, sm_count: int = H100_SMS) -> Sca
     return ScanGrid(qt=qt, n_qtiles=cdiv(B, qt), rows_per_block=rb,
                     base_blocks=base_blocks, P=base_blocks + cdiv(Nd, rb), lc=lc,
                     lpad=lpad, cap=cap)
-
-
-def copy_bytes(*rows: torch.Tensor) -> int:
-    """Widest copy (16, 8, 4 or 2 bytes) that every row of every source
-    starts on."""
-    for vb in (16, 8, 4, 2):
-        if all(t.data_ptr() % vb == 0 and (t.shape[1] * t.element_size()) % vb == 0
-               for t in rows):
-            return vb
-    raise ValueError("rows are not 2-byte aligned")
 
 
 def _row_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:

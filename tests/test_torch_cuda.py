@@ -14,8 +14,9 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ref import batched_scores_ref
-from repro_torch.kernels.parity import (CARD_CASES, FLASH_CASES, FLASH_DTYPES,
-                                        check_case, check_flash_case, check_scores)
+from repro_torch.kernels.parity import (CARD_CASES, FLASH_CASES, FLASH_DTYPES, TOPK_CASES,
+                                        check_case, check_flash_case, check_scores,
+                                        check_topk_case)
 from repro_torch.kernels.topk.kernel import topk_scores
 from repro_torch.kernels.topk.ref import topk_ref
 
@@ -36,6 +37,14 @@ def cuda_device():
 @pytest.mark.parametrize("name", sorted(CARD_CASES))
 def test_kernels_match_plain_on_card(cuda_device, name, metric, dtype):
     check_case(name, metric, DTYPES[dtype], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TOPK_CASES))
+def test_topk_cases_equal_plain_on_card(cuda_device, name):
+    """Rising scores, ties, NEG_INF tails, k beyond the live columns, 1e6
+    columns, k = 2048 and odd N in each dtype: equal to ``topk_ref``."""
+    check_topk_case(name, cuda_device)
 
 
 @pytest.mark.cuda

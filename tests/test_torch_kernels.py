@@ -23,11 +23,14 @@ from repro.kernels.topk.kernel import neg_inf_for as jax_neg_inf_for
 from repro.kernels.topk.ref import topk_ref as jax_topk_ref
 from repro_torch.kernels import common, launch_counts
 from repro_torch.kernels.common import NEG_INF, neg_inf_for
+from repro_torch.kernels.distance import kernel as distance_kernel
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ops import fused_scan
-from repro_torch.kernels.parity import CASES, case_arrays, to_torch
+from repro_torch.kernels.parity import (CASES, TOPK_CASES, case_arrays, to_torch,
+                                        topk_case_scores)
 from repro_torch.kernels.streaming import kernel as streaming_kernel
 from repro_torch.kernels.streaming.ops import streaming_fused_scan
+from repro_torch.kernels.topk import kernel as topk_kernel
 from repro_torch.kernels.topk.kernel import topk_scores
 
 RTOL = ATOL = 1e-5
@@ -235,3 +238,96 @@ def test_scan_grid_covers_every_row_once(B, Nb, Nd, k):
     fan_in = common.merge_fan_in(B, g.P, g.lc)
     scratch = common.merge_scratch_elems(B, g.P, g.lc, min(k, Nb + Nd), fan_in)
     assert B * g.P * g.lc <= scratch
+
+
+@pytest.mark.parametrize("B,N,k", [(64, 1_000_064, 100), (1, 1_000_000, 100),
+                                   (2, 5000, 2048), (2, 300_000, 2048), (3, 100_001, 64),
+                                   (4, 300_000, 100), (3, 20_000, 100), (1, 10, 100),
+                                   (200, 777, 5), (1, 1_000_000, 20_000),
+                                   (5, 2_000_000, 9000)])
+def test_topk_grid_covers_every_column_once(B, N, k):
+    """The top-k grid: each row's column blocks cover its N columns once, in
+    order, each a multiple of the column tile but the last; each block's
+    list holds min(k, its columns) keys in a power of two fed by a
+    power-of-two buffer, within the shared-memory budget; about two blocks
+    per SM; and the merge scratch covers the lists down to k."""
+    g = topk_kernel.topk_grid(B, N, k)
+    c = g.cols_per_block
+    spans = [(c0, min(c0 + c, N)) for c0 in range(0, N, c)]
+    assert len(spans) == g.blocks_per_row
+    assert spans[0][0] == 0 and spans[-1][1] == N
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert c % topk_kernel.COL_TILE == 0 and c % 8 == 0
+    assert all(g.lc >= min(k, c1 - c0) for c0, c1 in spans)
+    assert g.lc == min(k, c) <= g.lpad and g.cap <= g.lpad
+    assert g.lpad & (g.lpad - 1) == 0 and g.cap & (g.cap - 1) == 0
+    assert g.lc <= topk_kernel.MAX_LIST and g.smem_bytes <= topk_kernel.SMEM_BYTES
+    if B * N >= 2 * common.H100_SMS * topk_kernel.COL_TILE and k <= topk_kernel.MAX_LIST:
+        assert B * g.blocks_per_row >= common.H100_SMS  # the card is full
+    k_eff = min(k, N)
+    fan_in = common.merge_fan_in(B, g.blocks_per_row, g.lc)
+    scratch = common.merge_scratch_elems(B, g.blocks_per_row, g.lc, k_eff, fan_in)
+    assert B * g.blocks_per_row * g.lc <= scratch
+
+
+def test_topk_grid_main_path_merges_in_one_round():
+    """(64, 1,000,064), k = 100: four blocks a row, one merge round at
+    fan-in 8."""
+    g = topk_kernel.topk_grid(64, 1_000_064, 100)
+    assert g.blocks_per_row == 4
+    assert common.merge_fan_in(64, g.blocks_per_row, g.lc) >= g.blocks_per_row
+
+
+@pytest.mark.parametrize("B,N,d", [(64, 999_996, 384), (64, 1_000_064, 384),
+                                   (64, 1000, 128), (12, 1000, 128), (1, 1000, 128),
+                                   (65, 3000, 40), (128, 256, 64), (100, 4096, 1024),
+                                   (64, 4096, 1024), (1, 1_000_000, 384), (17, 384, 100),
+                                   (128, 600_000, 128)])
+def test_distance_tiles_cover_every_score_once(B, N, d):
+    """The distance grid: its tiles cover every (query, row) once; the tile
+    is one the kernel is built for, of whole warps of 4 x 8 lanes; a call
+    large enough gets the wide tile (8 x 8 thread tiles) at two blocks or
+    more an SM, with B = 65-128 in two query tiles, and a smaller one the
+    narrow tile."""
+    t = distance_kernel.distance_tiles(B, N, d)
+    tiles = (distance_kernel.WIDE_TILE, distance_kernel.NARROW_TILE)
+    assert (t.bm, t.bn, t.tm) in tiles
+    assert t.bm % (4 * t.tm) == 0 and t.bn % (8 * t.tm) == 0
+    nx, ny = t.grid
+    assert (nx - 1) * t.bn < N <= nx * t.bn and (ny - 1) * t.bm < B <= ny * t.bm
+    wide = -(-B // 64) * -(-N // 256)
+    if wide >= 2 * common.H100_SMS:
+        assert (t.bm, t.bn, t.tm) == distance_kernel.WIDE_TILE and t.tm == 8
+        assert t.grid[1] == -(-B // 64) and t.blocks >= 2 * common.H100_SMS
+    else:
+        assert (t.bm, t.bn, t.tm) == distance_kernel.NARROW_TILE
+        assert t.blocks > wide
+
+
+def test_distance_tiles_fill_the_card_at_the_main_path_shapes():
+    """At least one block per SM at the rerank shape (the wide tile); at the
+    IVF centroid shape (64, 1000, 128) the narrow tile gives about one
+    one-warp block per SM (128 on 132 SMs), each thread a 4 x 4 tile."""
+    rerank = distance_kernel.distance_tiles(64, 999_996, 384)
+    assert rerank.blocks >= common.H100_SMS and rerank.grid[1] == 1 and rerank.tm == 8
+    cent = distance_kernel.distance_tiles(64, 1000, 128)
+    assert cent.blocks == 4 * 32 >= common.H100_SMS - 4 and cent.tm == 4
+
+
+@pytest.mark.parametrize("name", sorted(TOPK_CASES))
+def test_topk_cases_match_jax_ref(name):
+    """The card's top-k cases (rising scores, ties, NEG_INF tails, k beyond
+    the live columns, 1e6 columns, k = 2048, odd N per dtype) through the
+    port's CPU path and the JAX oracle: equal values and ids in every live
+    slot. The oracle (``lax.top_k``) fills slots past the live columns with
+    masked columns' ids; the kernels' contract there is (NEG_INF, id 0)."""
+    s = topk_case_scores(name)
+    k = TOPK_CASES[name]["k"]
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+           torch.float16: jnp.float16}[s.dtype]
+    rvals, rids = jax_topk_ref(jnp.asarray(s.float().numpy()).astype(jdt), min(k, s.shape[1]))
+    rvals, rids = np.asarray(rvals, dtype=np.float32), np.asarray(rids)
+    vals, ids = topk_scores(s, k)
+    live = rvals > NEG_INF
+    np.testing.assert_array_equal(np.where(live, rids, 0), ids.numpy())
+    np.testing.assert_array_equal(np.where(live, rvals, NEG_INF), vals.numpy())
