@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of MINT on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rows N]
+    python3 chip_smoke.py [--rows N] [--graph-rows N]
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
 into ``build/kernels/``), then:
@@ -13,9 +13,11 @@ into ``build/kernels/``), then:
      the live columns, 1e6 columns, k = 2048, odd N in f16 / bf16 / f32),
      equal to the plain version; the scan, distance and top-k grid (ragged
      cases, a deep k = 2048, and the scan's own cuts: many row blocks, two
-     query tiles, a 2048-key list, a shrunk query tile; x metrics x
-     f32/bf16/f16), where the two-pass scan must also equal the streaming
-     scan bit for bit; then
+     query tiles, a 2048-key list, a shrunk query tile; the filtered and
+     mutated paths' operands: keep bitmaps with tombstones on base and
+     base + delta, a keep bitmap sparser than k; the cache probe's k = 1;
+     x metrics x f32/bf16/f16), where the two-pass scan must also equal the
+     streaming scan bit for bit; then
      the flash-attention grid (MHA, GQA, MQA, causal or not, window x
      softcap, d = 128 on a ragged S, Sq = 1, fully masked rows, long split
      decodes, tensor-core tiles; x f32/bf16/f16), which must run all three
@@ -35,9 +37,32 @@ into ``build/kernels/``), then:
      those main-path shapes; the two-pass scan bit-equal to the streaming
      scan at B = 1 and 64 over the 1,000,000-row column, and timed; top-k
      also at its worst case (scores rising along each row);
-  5. the same path on the CPU and on the card at the serving-test scale
+  5. filtered serving on that tuned database (phase ``filter_path``):
+     ``synth_attributes`` over its rows, the bisimple queries under Range
+     predicates keeping 0.1%, 1%, 10% and 50% of the rows, an Eq and a
+     predicate matching nothing, planned with the planner's access choice
+     and with each forced access (pre, masked, post) and served in
+     batches: one scan dispatch per (group, index), no launch for a
+     zero-match group, the pre / masked / flat results equal to the
+     engine's oracle (up to near ties, ``same_topk``), the two-pass ids
+     equal to the streaming ids;
+  6. mutated serving (phase ``mutation_path``): 10,000 inserted rows and
+     10,000 deletes through a ``MutationView``; each streaming flat group
+     one merged base + delta launch (no delta dispatch), the two-pass path
+     a separate one, equal ids, flat results equal to the live oracle;
+     then a compaction (``Compactor``, ``swap_store``, ``rebase``) after
+     which the flat ids are unchanged;
+  7. the semantic-cache probe (phase ``cache_probe``, 64 x 256 rows
+     filled to 200) and the torch DP against the Python DP (phase
+     ``planner_dp``); then each new kernel use (keep-masked scan, merged
+     base + delta scan, cache probe, distance at the largest pre-filter
+     gather) held against its plain version and timed as in 4;
+  8. the same path on the CPU and on the card at the serving-test scale
      (2,500 rows): configuration, plans, numDist, costs and ids must agree;
-  6. the model substrate's serving path at Gemma-2-27B's full width and
+     then the torch quickstart (``examples/torch_quickstart.py``) over
+     ``hnsw`` at 100,000 rows (phase ``graph_path``; MINT's recall >=
+     theta) and its plans over ``diskann``;
+  9. the model substrate's serving path at Gemma-2-27B's full width and
      depth (46 layers, d_model 4608, 32 / 16 heads of 128, d_ff 36864,
      vocab 256000; 27.2e9 random bf16 parameters from a seed), after the
      MINT phases' tensors are released: a prefill of 2 prompts x 8192
@@ -47,13 +72,13 @@ into ``build/kernels/``), then:
      Attention runs in the flash kernel, whose launches are zeroed before
      and read after. The q / k / v of the first local and first global
      layer's prefill and of one decode step are noted;
-  7. the flash kernel against its plain version at those noted calls, in
+  10. the flash kernel against its plain version at those noted calls, in
      bf16 and again in float32 on the same inputs, and timed beside the
      plain version, the library call of the same function (flex_attention
      with a softcap score_mod and a causal + window block mask, compiled),
      an SDPA call that does less work (no softcap), and the bound at the
      bf16 tensor-core rate;
-  8. the same model path on the CPU and on the card at
+  11. the same model path on the CPU and on the card at
      ``gemma2-27b.reduced()``: logits within the same tolerance, the same
      top-1 tokens.
 
@@ -172,37 +197,45 @@ class DistanceDispatches:
             self.largest[kind] = dict(shape=(B, n, d), qmat=qmat.clone(), rows=rows,
                                       **extra)
 
-    def attach(self, engine) -> None:
-        ivf_scan, rerank = engine._ivf_scan, engine._rerank
-        flat, scored = engine._flat_scan_scored, engine._batched_scores
+    def attach(self, engine):
+        """Wraps the engine's dispatch methods; returns an undo."""
+        names = ("_ivf_scan", "_rerank", "_prefilter_group", "_flat_scan_scored",
+                 "_batched_scores")
+        ivf_scan, rerank, prefilter, flat, scored = (getattr(engine, n) for n in names)
 
         def within(kind, fn):
-            def run(group, *args):
+            def run(group, *args, **kw):
                 self.kind, self.col = kind, engine.cstore.device(group.key.vid)
                 try:
-                    return fn(group, *args)
+                    return fn(group, *args, **kw)
                 finally:
                     self.kind = self.col = None
             return run
 
         def batched_scores(qmat, sub):
-            if self.kind == "centroids":  # the centroid table: kept as it is
-                self.note("centroids", qmat, sub.shape[0], lambda sub=sub: sub)
+            if self.kind in ("centroids", "prefilter"):  # kept as they are
+                self.note(self.kind, qmat, sub.shape[0], lambda sub=sub: sub)
             elif self.kind == "rerank":  # the union's rows: as many of the column
                 self.note("rerank", qmat, sub.shape[0],
                           lambda col=self.col, n=sub.shape[0]: col.data[:n])
             return scored(qmat, sub)
 
-        def flat_scan_scored(col, qmat, k):
-            if not engine.streaming:
+        def flat_scan_scored(col, qmat, k, **kw):
+            if not engine.streaming and not kw:
                 self.note("flat_two_pass", qmat, col.data.shape[0],
                           lambda col=col: col.data, k=k, valid_n=col.n_rows)
-            return flat(col, qmat, k)
+            return flat(col, qmat, k, **kw)
 
         engine._ivf_scan = within("centroids", ivf_scan)
         engine._rerank = within("rerank", rerank)
+        engine._prefilter_group = within("prefilter", prefilter)
         engine._batched_scores = batched_scores
         engine._flat_scan_scored = flat_scan_scored
+
+        def undo():
+            for n in names:
+                delattr(engine, n)
+        return undo
 
 
 # ---- the main path --------------------------------------------------------------
@@ -212,7 +245,7 @@ def run_path(db, workload, constraints, device, min_sample_rows=2000,
              per_column=True, dispatches=None):
     """tune -> build -> serve MINT (and PerColumn) on ``device``; returns a
     dict of results and wall times. ``dispatches`` (a ``DistanceDispatches``)
-    is attached to the serving engine."""
+    is attached to the serving engine (its undo is ``undo_dispatches``)."""
     from repro_torch.core.tuner import Mint, ground_truth_cache
     from repro_torch.index.registry import IndexStore
     from repro_torch.serve.engine import BatchEngine
@@ -221,6 +254,7 @@ def run_path(db, workload, constraints, device, min_sample_rows=2000,
     t0 = time.perf_counter()
     mint = Mint(db, index_kind="ivf", seed=0, min_sample_rows=min_sample_rows,
                 device=device)
+    out["tuner"] = mint
     result = mint.tune(workload, constraints)
     pc = mint.per_column(workload, constraints) if per_column else None
     sync()
@@ -235,14 +269,15 @@ def run_path(db, workload, constraints, device, min_sample_rows=2000,
     gt = ground_truth_cache(db, workload)
     engine = BatchEngine(db, store=store, streaming=True)
     if dispatches is not None:
-        dispatches.attach(engine)
+        out["undo_dispatches"] = dispatches.attach(engine)
     t0 = time.perf_counter()
     out["mint"] = engine.execute_workload(workload, result, gt)
     out["per_column"] = engine.execute_workload(workload, pc, gt) if pc else None
     sync()
     out["serve_s"] = time.perf_counter() - t0
     out["counters"] = engine.counters.as_dict()
-    out.update(result=result, pc=pc, store=store, engine=engine, gt=gt)
+    out.update(result=result, pc=pc, store=store, engine=engine, gt=gt,
+               constraints=constraints)
     return out
 
 
@@ -284,7 +319,7 @@ def phase_main_path(rows: int, dev) -> dict:
 
     # the two-pass scan serves the same plans with identical ids
     two = BatchEngine(db, store=r["store"], cstore=r["engine"].cstore, streaming=False)
-    dispatches.attach(two)
+    undo_two = dispatches.attach(two)
     t0 = time.perf_counter()
     for res, ref in ((r["result"], mint_m), (r["pc"], pc_m)):
         m2 = two.execute_workload(workload, res, r["gt"])
@@ -332,7 +367,10 @@ def phase_main_path(rows: int, dev) -> dict:
         for kind, rec in dispatches.largest.items()})
     check(set(dispatches.largest) == {"centroids", "rerank", "flat_two_pass"},
           f"main path made distance dispatches of kinds {sorted(dispatches.largest)}")
-    return dict(counts=counts, col=col, qmat=qmat, k=q.k, dispatches=dispatches.largest)
+    r.pop("undo_dispatches")()
+    undo_two()
+    return dict(counts=counts, col=col, qmat=qmat, k=q.k, dispatches=dispatches.largest,
+                db=db, workload=workload, path=r, two=two)
 
 
 # ---- times at the main path's shapes -----------------------------------------------
@@ -354,11 +392,8 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
     rows = []
 
     def row(name, route, source, replaces, shape, ms, plain_ms, library_ms, b, **extra):
-        rows.append(dict(name=name, route=route, source=source, replaces=replaces,
-                         launches=main["counts"][name], max_abs_err=errs[name],
-                         ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                         library_ms=library_ms, shape=shape))
-        emit("kernel_time", **rows[-1], **extra)
+        rows.append(table_row(name, route, source, replaces, main["counts"][name],
+                              errs[name], ms, plain_ms, library_ms, b, shape=shape, **extra))
 
     def rates(flops, nbytes, ms):
         return dict(achieved_tflops=flops / ms / 1e9, achieved_gbps=nbytes / ms / 1e6)
@@ -463,6 +498,500 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
                  shape=[B, n, kk], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
                  bound_by=b[1], **rates(0.0, nbytes, ms), **grid)
     del rising
+    return rows
+
+
+# ---- the filtered, mutated, cache-probe, DP and graph paths ----------------------------
+
+SELECTIVITIES = (0.001, 0.01, 0.1, 0.5)
+ACCESSES = (None, "pre", "masked", "post")  # None: the planner's choice
+CHURN_ROWS = 10_000  # inserted and deleted each: 1% of the paper's rows each way
+GRAPH_ROWS = 100_000
+
+
+def quantile_pred(attrs, n_rows: int, sel: float, lo_q: float = 0.2):
+    """A Range over the uniform ``score`` field keeping ~``sel`` of the rows
+    (``benchmarks/filter_bench.py``'s rule); sel = 0 keeps none."""
+    from repro_torch.filter import Range
+    vals = np.sort(attrs.take("score", np.arange(n_rows)))
+    if sel <= 0.0:
+        return Range("score", lo=float(vals[-1]) + 1.0, hi=float(vals[-1]) + 2.0)
+    lo_q = min(lo_q, 1.0 - sel)
+    return Range("score", lo=float(np.quantile(vals, lo_q)),
+                 hi=float(np.quantile(vals, lo_q + sel)))
+
+
+def expected_scans(engine, pairs) -> int:
+    """Scan dispatches a batch must take: one per (group, index), one per
+    flat-fallback or pre-filter group, none for a group whose predicate
+    matches no live row."""
+    from repro_torch.serve.compiler import compile_batch
+    n = 0
+    for g in compile_batch(pairs):
+        if g.key.pred is not None and engine._filter_state(g.key.pred).n_match == 0:
+            continue
+        n += 1 if (not g.specs or g.key.access == "pre") else len(g.specs)
+    return n
+
+
+def host_scores(eng, q, ids: np.ndarray) -> np.ndarray:
+    """The host's float32 scores of stable ``ids`` for query ``q`` over the
+    engine's live table (base rows, and delta rows under a mutation view)."""
+    qv = q.concat()
+    mv = eng._mv()
+    if mv is None:
+        return eng.cstore.host(q.vid)[ids] @ qv
+    is_delta, phys = mv.locate(ids)
+    out = np.empty(len(ids), dtype=np.float32)
+    t = mv.table
+    if (~is_delta).any():
+        rows = np.concatenate([t.base.columns[c][phys[~is_delta]] for c in q.vid], axis=1)
+        out[~is_delta] = rows @ qv
+    if is_delta.any():
+        out[is_delta] = t.delta_concat(q.vid)[phys[is_delta]] @ qv
+    return out
+
+
+def same_topk(eng, q, got, want, what: str) -> int:
+    """Checks ids equal to the oracle's slot by slot, except at near ties:
+    where a slot differs, the host's score of the returned id lies within
+    the kernels' tolerance (``kernels.parity.tolerance``) of the host's
+    score at that slot. The kernels sum in another order than the host's
+    BLAS, so two scores a last bit apart may swap. Returns such slots."""
+    from repro_torch.kernels.parity import tolerance
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape, f"{what}: {got.shape[0]} ids, the oracle {want.shape[0]}")
+    check(len(set(got.tolist())) == got.shape[0], f"{what}: duplicate ids")
+    diff = np.nonzero(got != want)[0]
+    if diff.size:
+        sg, sw = host_scores(eng, q, got[diff]), host_scores(eng, q, want[diff])
+        check(bool(np.all(np.abs(sg - sw) <= tolerance(q.dim())
+                          * np.maximum(np.abs(sw), 1.0))),
+              f"{what}: ids differ from the oracle beyond a near tie "
+              f"(slots {diff[:8].tolist()}, scores {sg[:4]} vs {sw[:4]})")
+    return int(diff.size)
+
+
+def serve_checked(eng, two, pairs, gt, what: str) -> dict:
+    """Serves ``pairs`` on the streaming engine (timed) and the two-pass
+    engine; checks one scan dispatch per (group, index), the exact paths
+    (flat fallback, pre, masked) against the oracle ``gt`` (``same_topk``)
+    and the two-pass ids against the streaming ids (equal). Returns the
+    numbers of the cell."""
+    from repro_torch.kernels import launch_counts
+    eng.counters.reset()
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = eng.execute_batch(pairs, gt_cache=gt)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    after = launch_counts()
+    launches = {n: after[n] - before[n] for n in MINT_KERNELS}
+    want = expected_scans(eng, pairs)
+    check(eng.counters.scan == want,
+          f"{what}: {eng.counters.scan} scan dispatches, expected {want}")
+    swaps = 0
+    for (q, p), m in zip(pairs, metrics):
+        if not p.indexes or p.access_path in ("pre", "masked"):
+            swaps += same_topk(eng, q, m.ids, gt[q.qid],
+                               f"{what}: q{q.qid} ({p.access_path or 'flat'})")
+    counters = eng.counters.as_dict()
+    two.counters.reset()
+    for (q, _), m, t in zip(pairs, metrics, two.search_batch(pairs)):
+        check(np.array_equal(np.asarray(m.ids), t), f"{what}: q{q.qid} two-pass ids differ")
+    post = [m.recall for (_, p), m in zip(pairs, metrics) if p.access_path == "post"]
+    return dict(queries=len(pairs), access=sorted({str(p.access_path) for _, p in pairs}),
+                serve_s=serve_s, dispatch_counters=counters, launches=launches,
+                oracle_near_tie_swaps=swaps,
+                two_pass_counters=two.counters.as_dict(),
+                mean_recall=float(np.mean([m.recall for m in metrics])),
+                post_filter_recall=dict(mean=float(np.mean(post)), min=float(min(post)))
+                if post else None)
+
+
+def phase_filter_path(main: dict, dev) -> dict:
+    """Filtered serving at the main path's scale: ``synth_attributes`` over
+    the 1,000,000 rows, the bisimple queries under Range predicates at four
+    selectivities, one Eq and one that matches nothing, planned against the
+    tuned configuration with the planner's access choice and with each
+    forced access, served in batches (12 queries a batch)."""
+    from dataclasses import replace
+    from repro_torch.filter import Eq, describe, synth_attributes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    db, wl, r, two = main["db"], main["workload"], main["path"], main["two"]
+    eng, mint = r["engine"], r["tuner"]
+    t_phase = t0 = time.perf_counter()
+    attrs = synth_attributes(db.n_rows, seed=0, device=dev)
+    attrs_s = time.perf_counter() - t0
+    preds = {f"score_sel_{sel:g}": quantile_pred(attrs, db.n_rows, sel)
+             for sel in SELECTIVITIES}
+    preds["category_eq_cat0"] = Eq("category", "cat0")
+    preds["zero_match"] = quantile_pred(attrs, db.n_rows, 0.0)
+    mint.attributes = attrs
+    planner = mint.planner(r["constraints"])
+    config = r["result"].configuration
+    for e in (eng, two):
+        e.attach_filters(attrs, planner.selectivity)
+    dispatches = DistanceDispatches()
+    undo = dispatches.attach(eng)
+    reset_launch_counts()
+    cells, oracle_s = {}, 0.0
+    try:
+        for pname, pred in preds.items():
+            fqs = [replace(q, predicate=pred) for q in wl.queries]
+            t0 = time.perf_counter()
+            gt = {q.qid: eng.ground_truth(q) for q in fqs}
+            oracle_s += time.perf_counter() - t0
+            fs = eng._filter_state(pred)
+            for access in ACCESSES:
+                pairs = []
+                for q in fqs:
+                    try:
+                        pairs.append((q, planner.plan(q, config, force_access=access)))
+                    except ValueError:  # "post" with no useful index for the query
+                        pass
+                what = f"filter {pname}/{access or 'auto'}"
+                cell = serve_checked(eng, two, pairs, gt, what)
+                if fs.n_match == 0:
+                    check(not any(cell["launches"].values()),
+                          f"{what}: a zero-match group launched {cell['launches']}")
+                cell.update(predicate=describe(pred), n_match=fs.n_match)
+                cells[f"{pname}/{access or 'auto'}"] = cell
+        counts = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+        keep = eng._filter_state(preds["score_sel_0.1"]).base_keep_dev(
+            int(main["col"].data.shape[0]))
+    finally:
+        undo()
+        for e in (eng, two):
+            e.detach_filters()
+    check("prefilter" in dispatches.largest, "no pre-filter gather was scored")
+    emit("filter_path", rows=db.n_rows, attributes_s=attrs_s, oracle_s=oracle_s,
+         launches=counts, seconds=time.perf_counter() - t_phase,
+         selectivity_estimates={p: planner.selectivity.estimate(pred)
+                                for p, pred in preds.items()},
+         largest_prefilter_gather=dispatches.largest["prefilter"]["shape"], cells=cells)
+    return dict(attrs=attrs, planner=planner, preds=preds, keep=keep, counts=counts,
+                prefilter=dispatches.largest["prefilter"])
+
+
+def phase_mutation_path(main: dict, filt: dict, dev) -> dict:
+    """Mutated serving: the 1,000,000-row table takes 10,000 inserted rows
+    (``make_database(10_000, PAPER_COLUMNS, seed=77)``, with attributes) and
+    10,000 deletes of seeded live ids; flat plans, the MINT plans and the
+    filtered workload are served over base + delta; then the table is
+    compacted (``Compactor``, ``swap_store``, ``rebase``) and the flat plans
+    served again."""
+    from dataclasses import replace
+    from repro_torch.core.types import QueryPlan
+    from repro_torch.data.vectors import PAPER_COLUMNS, make_database
+    from repro_torch.ingest import (CompactionPolicy, Compactor, DeleteBatch, InsertBatch,
+                                    MutableTable, MutationView)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.compiler import compile_batch
+    db, wl, r, two = main["db"], main["workload"], main["path"], main["two"]
+    eng, attrs, planner = r["engine"], filt["attrs"], filt["planner"]
+    t_phase = t0 = time.perf_counter()
+    table = MutableTable(db)
+    fresh = make_database(CHURN_ROWS, PAPER_COLUMNS, seed=77)
+    _, new_ids = table.apply(InsertBatch(fresh.columns))
+    rng = np.random.default_rng(78)
+    attrs.put(new_ids, {"category": [f"cat{c}" for c in rng.integers(0, 8, CHURN_ROWS)],
+                        "score": rng.random(CHURN_ROWS).astype(np.float32),
+                        "source": [f"src{s}" for s in rng.integers(0, 4, CHURN_ROWS)]})
+    table.apply(DeleteBatch(rng.choice(table.live_ids(), size=CHURN_ROWS, replace=False)))
+    check(CompactionPolicy().should_compact(table) is None,
+          "1% churn each way should stay under the compaction policy")
+    mv = MutationView(table, device=dev)
+    for e in (eng, two):
+        e.attach_mutations(mv)
+        e.attach_filters(attrs, planner.selectivity)
+    churn_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    qs = wl.queries
+    gt = {q.qid: eng.ground_truth(q) for q in qs}
+    flat = [(q, QueryPlan(q.qid, [], [], 0.0, 1.0)) for q in qs]
+    groups = len(compile_batch(flat))
+    cells = {"flat": serve_checked(eng, two, flat, gt, "mutated flat")}
+    c = cells["flat"]
+    check(c["dispatch_counters"]["delta"] == 0
+          and c["launches"]["streaming_fused_scan"] == groups,
+          f"mutated flat: {c['launches']} launches, {c['dispatch_counters']} for "
+          f"{groups} groups (one merged base+delta launch each)")
+    check(c["two_pass_counters"]["delta"] == groups,
+          "the two-pass flat scans took no separate delta dispatch")
+    flat_ids = [np.asarray(i) for i in eng.search_batch(flat)]
+    mint_pairs = [(q, r["result"].plans[q.qid]) for q in qs]
+    cells["mint"] = serve_checked(eng, two, mint_pairs, gt, "mutated MINT plans")
+    for pname in ("score_sel_0.01", "score_sel_0.1"):
+        fqs = [replace(q, predicate=filt["preds"][pname]) for q in qs]
+        fgt = {q.qid: eng.ground_truth(q) for q in fqs}
+        pairs = [(q, planner.plan(q, r["result"].configuration)) for q in fqs]
+        cells[f"{pname}/auto"] = serve_checked(eng, two, pairs, fgt, f"mutated {pname}")
+    counts = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+    col = main["col"]
+    dcol = mv.delta(col.vid)
+    noted = dict(delta=dcol.col.data, delta_n=dcol.n_rows, delta_dead=dcol.dead_mask,
+                 dead=mv.base_dead_mask(int(col.data.shape[0])), counts=counts)
+    serve_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    state = Compactor(table, seed=0, device=dev).build(r["result"].configuration,
+                                                      reason="chip_smoke")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for e in (eng, two):
+        e.swap_store(state.store, state.cstore, state.db)
+    table.rebase(state.db, state.ids, state.stats.upto_lsn)
+    after = [np.asarray(i) for i in eng.search_batch(flat)]
+    for q, a, b in zip(qs, flat_ids, after):
+        check(np.array_equal(a, b), f"q{q.qid}: flat ids changed across compaction")
+    cells["flat_after_compaction"] = serve_checked(
+        eng, two, flat, {q.qid: eng.ground_truth(q) for q in qs}, "compacted flat")
+    for e in (eng, two):
+        e.detach_mutations()
+        e.detach_filters()
+    emit("mutation_path", rows=db.n_rows, inserted=CHURN_ROWS, deleted=CHURN_ROWS,
+         live=table.n_live, churn_s=churn_s, serve_s=serve_s,
+         compaction=dict(build_s=build_s, rows_after=state.stats.rows_after,
+                         delta_folded=state.stats.delta_folded,
+                         dead_reclaimed=state.stats.dead_reclaimed,
+                         specs_rebuilt=state.stats.specs_rebuilt),
+         flat_ids_equal_across_compaction=True, launches=counts,
+         seconds=time.perf_counter() - t_phase, cells=cells)
+    return noted
+
+
+def phase_cache_probe(main: dict, dev) -> dict:
+    """The semantic-cache probe through ``BatchEngine.cache_probe``: 64 query
+    vectors against a 256-row cache matrix filled to 200 rows (16 of them
+    exact repeats of live cache rows, 4 of rows past the fill level), held
+    against the plain version on the card and the CPU path."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.parity import check_topk, combined_plain_scores
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    from repro_torch.serve.engine import cache_probe_scan
+    B, C, d, valid = 64, 256, 384, 200
+    rng = np.random.default_rng(5)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+    mat = unit(rng.standard_normal((C, d)))
+    q = unit(rng.standard_normal((B, d)))
+    hits = rng.choice(valid, size=16, replace=False)
+    q[:16] = mat[hits]
+    q[16:20] = mat[valid:valid + 4]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    vals, ids = main["path"]["engine"].cache_probe(q, mat, valid)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()["streaming_fused_scan"]
+    check(launches == 1, f"the cache probe made {launches} scan launches")
+    qt, mt = torch.as_tensor(q, device=dev), torch.as_tensor(mat, device=dev)
+    rvals, rids = streaming_fused_scan_ref(qt, mt, 1, metric="l2", valid_n=valid)
+    full = combined_plain_scores(qt, mt, "l2", dict(valid_n=valid))
+    err, swaps = check_topk(torch.as_tensor(vals, device=dev),
+                            torch.as_tensor(ids, device=dev), rvals, rids, full, d,
+                            "cache probe")
+    check(bool((ids < valid).all()), "the cache probe returned a row past valid_n")
+    check(np.array_equal(ids[:16, 0], hits), "the cache probe missed exact repeats")
+    cvals, cids = cache_probe_scan(q, mat, valid, device="cpu")
+    check(np.array_equal(cids, ids), "the cache probe's ids differ between CPU and card")
+    emit("cache_probe", batch=B, cache_rows=C, width=d, valid_n=valid, launches=launches,
+         max_abs_err=err, near_tie_swaps=swaps, exact_hits_found=16, host_ms=probe_ms,
+         max_abs_diff_cpu=float(np.abs(cvals - vals).max()))
+    return dict(q=qt, m=mt, valid=valid, launches=launches)
+
+
+def phase_planner_dp(main: dict, dev) -> None:
+    """The vectorized DP (``core/planner_jax.py``, a torch DP) on the card
+    against the Python DP, for each bisimple query with at least 4 useful
+    specs (every ivf index over a subset of its columns), on the main
+    path's estimators."""
+    from itertools import combinations
+    from repro_torch.core.planner import algorithm2_dp
+    from repro_torch.core.planner_jax import plan_dp_jax
+    from repro_torch.core.types import IndexSpec
+    r = main["path"]
+    planner = r["tuner"].planner(r["constraints"])
+    theta = planner.theta_plan
+    out = []
+    for q in main["workload"].queries:
+        config = frozenset(IndexSpec(v, "ivf") for n in range(1, len(q.vid) + 1)
+                           for v in combinations(q.vid, n))
+        specs = planner.useful_indexes(q, config)
+        if len(specs) < 4:
+            continue
+        ctx = planner.context(q)
+        kw = dict(k_prime=planner.dp_k_prime, n_samples=planner.dp_samples,
+                  seed=planner.seed)
+        # both DPs read the same per-spec required eks, which the context
+        # computes once (a host scan of the full table per spec): fill them
+        # and warm the card's first launches before either is timed
+        for x in specs:
+            ctx.ek_req(x)
+        plan_dp_jax(ctx, specs, theta, device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_dp = plan_dp_jax(ctx, specs, theta, device=dev, **kw)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_py = algorithm2_dp(ctx, specs, theta, **kw)
+        py_s = time.perf_counter() - t0
+        check(p_dp is not None and p_dp.est_recall >= theta - 1e-9,
+              f"q{q.qid}: the torch DP found no plan covering theta")
+        check(p_py is None or p_py.est_recall >= theta - 1e-9,
+              f"q{q.qid}: the Python DP's plan misses theta")
+        out.append(dict(query=q.name, specs=len(specs), torch_dp_cost=p_dp.est_cost,
+                        torch_dp_coverage=p_dp.est_recall, torch_dp_s=dp_s,
+                        python_dp_cost=None if p_py is None else p_py.est_cost,
+                        python_dp_coverage=None if p_py is None else p_py.est_recall,
+                        python_dp_s=py_s, torch_dp_plan=p_dp.describe()))
+    check(len(out) > 0, "no bisimple query has 4 useful specs")
+    emit("planner_dp", theta_plan=theta, queries=out)
+
+
+def phase_graph_path(dev, rows: int) -> None:
+    """The torch quickstart (``examples/torch_quickstart.py``) on the card:
+    4 columns, the news workload, MINT tuned over hnsw and executed beside
+    the one-index-per-column baseline; then the same plans over diskann."""
+    from repro_torch.core.tuner import execute_workload
+    from repro_torch.index.registry import IndexStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import BatchEngine
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart as tq
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    r = tq.run(rows, "hnsw", device=dev)
+    mint_m, pc_m = r["mint"], r["per_column"]
+    theta = tq.CONSTRAINTS.theta_recall
+    check(mint_m.mean_recall >= theta,
+          f"graph path: MINT recall {mint_m.mean_recall:.4f} under theta {theta}")
+    dk = tq.with_kind(r["result"], "diskann")
+    store = IndexStore(r["db"], seed=0, device=dev)
+    t0 = time.perf_counter()
+    for spec in sorted(dk.configuration, key=lambda s: s.name):
+        store.get(spec)
+    dk_build_s = time.perf_counter() - t0
+    eng = BatchEngine(r["db"], store=store)
+    t0 = time.perf_counter()
+    dk_m = execute_workload(r["db"], store, r["workload"], dk, r["gt"], engine=eng)
+    dk_walk_s = time.perf_counter() - t0
+    counts = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+    check(counts["streaming_fused_scan"] > 0, "the graph builds made no scan launch")
+    emit("graph_path", rows=rows, columns=[d for _, d in tq.COLUMNS],
+         configuration=sorted(s.name for s in r["result"].configuration),
+         per_column=sorted(s.name for s in r["pc"].configuration),
+         plans={q.name: r["result"].plans[q.qid].describe() for q in r["workload"].queries},
+         mint_mean_recall=mint_m.mean_recall, mint_min_recall=mint_m.min_recall,
+         per_column_mean_recall=pc_m.mean_recall, theta_recall=theta,
+         cost_ratio_mint_over_per_column=mint_m.weighted_cost / pc_m.weighted_cost,
+         hnsw=dict(tune_s=r["tune_s"], build_s=r["build_s"], walk_s=r["walk_s"],
+                   dispatch_counters=r["counters"]),
+         diskann=dict(build_s=dk_build_s, walk_s=dk_walk_s, mean_recall=dk_m.mean_recall,
+                      min_recall=dk_m.min_recall, dispatch_counters=eng.counters.as_dict()),
+         launches=counts, seconds=time.perf_counter() - t_phase)
+
+
+def table_row(name, route, source, replaces, launches, max_abs_err, ms, plain_ms,
+              library_ms, b, **extra) -> dict:
+    """One row of the kernel table, also printed as a ``kernel_time`` line."""
+    rec = dict(name=name, route=route, source=source, replaces=replaces, launches=launches,
+               max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+               bound_by=b[1], library_ms=library_ms)
+    emit("kernel_time", **rec, **extra)
+    return dict(rec, shape=extra.get("shape"))
+
+
+def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev,
+                             peaks) -> list[dict]:
+    """The kernel uses of the filtered, mutated and cache-probe paths, each
+    held against its plain version and timed beside it, its library call
+    and its bound. Launches are the counts of the phase that drove the use;
+    bounds count what this run's data needs (the kept or live rows)."""
+    from repro_torch.kernels.distance.kernel import batched_scores
+    from repro_torch.kernels.distance.ref import batched_scores_ref
+    from repro_torch.kernels.parity import (check_scores, check_topk,
+                                            combined_plain_scores, two_pass_scan)
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    from repro_torch.kernels.common import NEG_INF
+    col, q, k = main["col"], main["qmat"], main["k"]
+    x, N = col.data, col.n_rows
+    B, d = q.shape
+    rows = []
+
+    def scan_row(use, kw, launches, library_call, live_rows, mask_bytes, qq=q, xx=x,
+                 kk=k, metric="dot", **extra):
+        vals, ids = streaming_fused_scan(qq, xx, k=kk, metric=metric, **kw)
+        rvals, rids = streaming_fused_scan_ref(qq, xx, kk, metric=metric, **kw)
+        full = combined_plain_scores(qq, xx, metric, kw)
+        err, swaps = check_topk(vals, ids, rvals, rids, full, qq.shape[1], f"scan {use}")
+        v2, i2 = two_pass_scan(qq, xx, kk, metric, kw)
+        check(torch.equal(v2, vals) and torch.equal(i2, ids),
+              f"two-pass scan differs from the streaming scan ({use})")
+        ms = cuda_ms(lambda: streaming_fused_scan(qq, xx, k=kk, metric=metric, **kw))
+        plain = cuda_ms(lambda: streaming_fused_scan_ref(qq, xx, kk, metric=metric, **kw))
+        lib = cuda_ms(library_call)
+        bq, dd = qq.shape
+        nbytes = 4 * (bq * dd + live_rows * dd) + mask_bytes + 8 * bq * kk
+        flops = 2.0 * bq * live_rows * dd
+        rows.append(table_row(
+            f"streaming_fused_scan[{use}]", "cuda", "src/repro_torch/csrc/streaming.cu",
+            "src/repro/kernels/streaming/kernel.py:44", launches, err, ms, plain, lib,
+            bound(nbytes, flops, peaks), use=use, near_tie_swaps=swaps,
+            two_pass_equal=True, live_rows=live_rows, achieved_gbps=nbytes / ms / 1e6,
+            achieved_tflops=flops / ms / 1e9, **extra))
+
+    # keep-masked scan: the 64-query burst over the 1M-row column, selectivity 0.1
+    keep = filt["keep"]
+    kept = int(keep[:N].sum())
+    outside = ~keep[:N]
+    scan_row("keep_mask", dict(valid_n=N, keep_mask=keep),
+             filt["counts"]["streaming_fused_scan"],
+             lambda: torch.topk((q @ x[:N].T).masked_fill(outside, NEG_INF), k, dim=1),
+             kept, N, shape=[B, N, d, k], selectivity=kept / N,
+             library="matmul + masked_fill + topk")
+    # base + delta in one launch, tombstones on both sides
+    delta, dn = mut["delta"], mut["delta_n"]
+    kw = dict(valid_n=N, dead_mask=mut["dead"], delta=delta, delta_valid_n=dn,
+              delta_dead_mask=mut["delta_dead"])
+    both = torch.cat([x[:N], delta[:dn]])
+    ddead = (torch.zeros(dn, dtype=torch.bool, device=dev) if mut["delta_dead"] is None
+             else mut["delta_dead"][:dn])
+    dead_both = torch.cat([mut["dead"][:N], ddead])
+    live = int((~dead_both).sum())
+    scan_row("base_plus_delta", kw, mut["counts"]["streaming_fused_scan"],
+             lambda: torch.topk((q @ both.T).masked_fill(dead_both, NEG_INF), k, dim=1),
+             live, N + dn, shape=[B, N, dn, d, k],
+             library="matmul + masked_fill + topk over the concatenation")
+    del both, dead_both
+    # the cache probe: l2, k = 1 over the 256-row cache matrix filled to 200
+    qp, mp, valid = probe["q"], probe["m"], probe["valid"]
+    scan_row("cache_probe", dict(valid_n=valid), probe["launches"],
+             lambda: torch.cdist(qp, mp[:valid]).min(dim=1), valid, 0, qq=qp, xx=mp,
+             kk=1, metric="l2", shape=[qp.shape[0], mp.shape[0], qp.shape[1], 1],
+             library="cdist + min")
+    # distance at the largest pre-filter gather (its own queries and rows)
+    rec = filt["prefilter"]
+    qg, xg = rec["qmat"], rec["rows"]()
+    (bg, dg), n = qg.shape, xg.shape[0]
+    err = check_scores(batched_scores(qg, xg), batched_scores_ref(qg, xg), dg,
+                       "distance at the pre-filter gather")
+    ms = cuda_ms(lambda: batched_scores(qg, xg))
+    plain = cuda_ms(lambda: batched_scores_ref(qg, xg))
+    lib = cuda_ms(lambda: qg @ xg.T)
+    nbytes, flops = 4 * (bg * dg + n * dg + bg * n), 2.0 * bg * n * dg
+    rows.append(table_row(
+        "batched_scores[prefilter_gather]", "cuda", "src/repro_torch/csrc/distance.cu",
+        "src/repro/kernels/distance/kernel.py:23", filt["counts"]["batched_scores"], err,
+        ms, plain, lib, bound(nbytes, flops, peaks), use="prefilter_gather",
+        shape=[bg, n, dg], library="matmul", achieved_gbps=nbytes / ms / 1e6,
+        achieved_tflops=flops / ms / 1e9))
     return rows
 
 
@@ -852,6 +1381,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000,
                     help="rows of the main-path database (cut only if the time "
                          "limit forces it; the cut is printed)")
+    ap.add_argument("--graph-rows", type=int, default=GRAPH_ROWS,
+                    help="rows of the graph path's quickstart database (cut only "
+                         "if the phase runs past 150 s; the cut is printed)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -888,8 +1420,16 @@ def main() -> int:
             emit("scale_cut", rows=args.rows, paper_rows=1_000_000)
         main_path = phase_main_path(args.rows, dev)
         rows = phase_kernel_times(main_path, dev, peaks, errs)
+        filt = phase_filter_path(main_path, dev)
+        mut = phase_mutation_path(main_path, filt, dev)
+        probe = phase_cache_probe(main_path, dev)
+        phase_planner_dp(main_path, dev)
+        rows += phase_slice_kernel_times(main_path, filt, mut, probe, dev, peaks)
+        del main_path, filt, mut, probe  # the model needs the card's memory
         phase_cpu_vs_card()
-        del main_path  # the model needs the card's memory
+        if args.graph_rows != GRAPH_ROWS:
+            emit("scale_cut", graph_rows=args.graph_rows, graph_rows_default=GRAPH_ROWS)
+        phase_graph_path(dev, args.graph_rows)
         model = phase_model_path(dev)
         del model["params"]
         rows += phase_flash_times(model, peaks, errs)

@@ -19,6 +19,7 @@ from repro_torch.core.estimators import (ColumnStats, EstimatorBundle, LinearFit
 from repro_torch.core.types import IndexSpec
 from repro_torch.data.vectors import MultiVectorDatabase
 from repro_torch.index.base import VectorIndex
+from repro_torch.index.graph import HNSWIndex, VamanaIndex, _BeamSearcher
 from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.index.registry import IndexStore
 from repro_torch.kernels.common import resolve_device
@@ -35,6 +36,47 @@ def ivf_from_arrays(data: np.ndarray, centroids: np.ndarray, row_ids: np.ndarray
     idx.row_ids = np.asarray(row_ids, dtype=np.int64)
     idx.offsets = np.asarray(offsets)
     idx.n_lists = int(n_lists)
+    return idx
+
+
+def hnsw_from_arrays(data: np.ndarray, layers: list, layer_ids: list, entry: int,
+                     seed_centroids: np.ndarray, seed_exemplars: np.ndarray,
+                     m: int = 16, ef_extra: int = 100, n_seed_entries: int = 8,
+                     device=None) -> HNSWIndex:
+    """The port's ``HNSWIndex`` over ``data`` with a built index's layer
+    adjacency (global ids), layer members, entry and centroid seeds (no
+    build is run)."""
+    idx = HNSWIndex.__new__(HNSWIndex)
+    VectorIndex.__init__(idx, data)
+    idx.device = resolve_device(device)
+    idx.max_degree, idx.ef_extra, idx.col_dims = m, ef_extra, None
+    idx._layers = [np.asarray(a, dtype=np.int32) for a in layers]
+    idx._layer_ids = [np.asarray(i, dtype=np.int64) for i in layer_ids]
+    idx.max_level = len(idx._layers) - 1
+    idx.entry = int(entry)
+    idx.seed_centroids = np.asarray(seed_centroids, dtype=np.float32)
+    idx.seed_exemplars = np.asarray(seed_exemplars, dtype=np.int64)
+    idx.n_seed_entries = int(n_seed_entries)
+    idx._make_searchers()
+    return idx
+
+
+def vamana_from_arrays(data: np.ndarray, adj: np.ndarray, entry: int,
+                       seed_centroids: np.ndarray, seed_exemplars: np.ndarray,
+                       r: int = 20, ef_extra: int = 100, n_seed_entries: int = 8,
+                       device=None) -> VamanaIndex:
+    """The port's ``VamanaIndex`` over ``data`` with a built index's
+    adjacency, medoid entry and centroid seeds (no build is run)."""
+    idx = VamanaIndex.__new__(VamanaIndex)
+    VectorIndex.__init__(idx, data)
+    idx.device = resolve_device(device)
+    idx.max_degree, idx.ef_extra, idx.col_dims = r, ef_extra, None
+    idx.adj = np.asarray(adj, dtype=np.int32)
+    idx.entry = int(entry)
+    idx.seed_centroids = np.asarray(seed_centroids, dtype=np.float32)
+    idx.seed_exemplars = np.asarray(seed_exemplars, dtype=np.int64)
+    idx.n_seed_entries = int(n_seed_entries)
+    idx._searcher = _BeamSearcher(idx.data, idx.adj)
     return idx
 
 

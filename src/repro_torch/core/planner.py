@@ -365,7 +365,9 @@ class QueryPlanner:
     dp_k_prime: int = 5
     dp_samples: int = 3
     seed: int = 0
-    use_jax_dp: bool = False  # vectorized Algorithm 2 (planner_jax)
+    use_jax_dp: bool = False  # vectorized Algorithm 2 (planner_jax, a torch DP)
+    # where the vectorized DP runs: None means the CUDA card, "cpu" the host
+    dp_device: object = None
     # filtered search (DESIGN.md §12): the attribute store and a sampled
     # SelectivityEstimator; both None keeps the planner purely vector
     attributes: object = None
@@ -412,10 +414,11 @@ class QueryPlanner:
         if len(specs) <= 3:
             return algorithm1_search(ctx, specs, self.theta_plan)
         if self.use_jax_dp:
-            raise NotImplementedError(
-                "the vectorized Algorithm 2 (planner_jax) is not ported yet: "
-                "it is queued in ROADMAP.md as a torch DP; use_jax_dp=False "
-                "runs the Python DP")
+            from repro_torch.core.planner_jax import plan_dp_jax
+            return plan_dp_jax(ctx, specs, self.theta_plan,
+                               k_prime=self.dp_k_prime,
+                               n_samples=self.dp_samples, seed=self.seed,
+                               device=self.dp_device)
         p = algorithm2_dp(ctx, specs, self.theta_plan,
                           k_prime=self.dp_k_prime, n_samples=self.dp_samples,
                           seed=self.seed)
@@ -430,9 +433,57 @@ class QueryPlanner:
 
     # ---- filtered search (DESIGN.md §12) ---------------------------------
 
+    def _selectivity_of(self, pred) -> float:
+        if self.selectivity is not None:
+            return float(self.selectivity.estimate(pred))
+        if self.attributes is not None:
+            # lazily build a default estimator over the base rows
+            from repro_torch.filter.selectivity import SelectivityEstimator
+            self.selectivity = SelectivityEstimator(
+                self.attributes, np.arange(self.database.n_rows),
+                seed=self.seed)
+            return float(self.selectivity.estimate(pred))
+        # no attribute info: assume the predicate passes everything, so
+        # the masked path (≈ the unfiltered scan) is chosen
+        return 1.0
+
     def _plan_filtered(self, query: Query, ctx: WhatIfContext, specs, pred,
                        force_access: str | None = None) -> QueryPlan:
-        """Access-path choice for filtered queries (pre / masked / post)."""
-        raise NotImplementedError(
-            "filtered planning is the filter slice (ROADMAP.md, Queue 1); "
-            "this slice plans unfiltered queries")
+        """Access-path choice per (query, predicate): cost out pre-filter
+        gather, keep-masked scan, and 1/selectivity-inflated post-filter
+        probe, and take the cheapest (``force_access`` pins one — bench /
+        test hook). Candidates are ordered masked, post, pre so exact cost
+        ties at the crossover resolve to the scan-shaped paths."""
+        from repro_torch.filter.selectivity import (inflate_eks, masked_scan_cost,
+                                                    prefilter_cost)
+        n = float(self.estimators.n_rows)
+        sel = self._selectivity_of(pred)
+        qdim = query.dim()
+        if sel <= 0.0:
+            # known-empty predicate: only the bitmap is ever evaluated
+            return QueryPlan(query.qid, [], [],
+                             est_cost=prefilter_cost(qdim, n, 0.0),
+                             est_recall=1.0, access_path="pre",
+                             selectivity=0.0)
+        cands = [QueryPlan(query.qid, [], [], masked_scan_cost(qdim, n), 1.0,
+                           access_path="masked", selectivity=sel)]
+        if specs:
+            p = self._index_plan(ctx, specs)
+            if p is not None and p.indexes:
+                cost = _plan_cost(ctx, p.indexes, p.eks, selectivity=sel)
+                # execution needs no estimator: the inflated eks are
+                # stored in the plan itself
+                inflated = inflate_eks(p.eks, sel, int(n))
+                cands.append(QueryPlan(query.qid, list(p.indexes), inflated,
+                                       cost, p.est_recall,
+                                       access_path="post", selectivity=sel))
+        cands.append(QueryPlan(query.qid, [], [],
+                               prefilter_cost(qdim, n, sel), 1.0,
+                               access_path="pre", selectivity=sel))
+        if force_access is not None:
+            forced = [c for c in cands if c.access_path == force_access]
+            if not forced:
+                raise ValueError(
+                    f"no {force_access!r} plan available for q#{query.qid}")
+            return forced[0]
+        return min(cands, key=lambda c: c.est_cost)

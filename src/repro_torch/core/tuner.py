@@ -47,13 +47,10 @@ class Mint:
     # card (raises without one); "cpu" runs the plain versions
     device: object = None
     _sample: MultiVectorDatabase | None = None
+    _selest: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.attributes is not None:
-            raise NotImplementedError(
-                "filtered tuning (attributes) is the filter slice "
-                "(ROADMAP.md, Queue 1)")
 
     def train(self) -> EstimatorBundle:
         if self.estimators is None:
@@ -67,16 +64,30 @@ class Mint:
         return self.estimators
 
     def selectivity_estimator(self, ids=None):
-        """Sampled selectivity estimator: None, since filtered tuning is not
-        ported (``attributes`` is refused at construction)."""
-        return None
+        """Sampled selectivity estimator over the attribute store (None
+        when no attributes are attached). Shared across planners so the
+        per-predicate cache amortizes. ``ids`` overrides the sampled id
+        population (default: the base row ids 0..n-1) — post-compaction
+        callers pass the live STABLE ids, which are no longer a range."""
+        if self.attributes is None:
+            return None
+        if self._selest is None:
+            from repro_torch.filter.selectivity import SelectivityEstimator
+            self._selest = SelectivityEstimator(
+                self.attributes,
+                np.arange(self.db.n_rows) if ids is None else ids,
+                sample_size=self.filter_sample, seed=self.seed)
+        elif ids is not None:
+            self._selest.refresh(ids)
+        return self._selest
 
     def planner(self, constraints: Constraints) -> QueryPlanner:
         self.train()
         return QueryPlanner(estimators=self.estimators, database=self.db,
                             theta_recall=constraints.theta_recall,
                             seed=self.seed, attributes=self.attributes,
-                            selectivity=self.selectivity_estimator())
+                            selectivity=self.selectivity_estimator(),
+                            dp_device=self.device)
 
     def tune(self, workload: Workload, constraints: Constraints,
              params: BeamSearchParams | None = None,

@@ -12,22 +12,15 @@ from repro_torch.core.types import DEFAULT_TENANT, IndexSpec, TenantId
 from repro_torch.data.vectors import MultiVectorDatabase
 from repro_torch.index.base import VectorIndex
 from repro_torch.index.bruteforce import FlatIndex
+from repro_torch.index.graph import HNSWIndex, VamanaIndex
 from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.kernels.common import resolve_device
 
-
-def _graph_kind(kind: str) -> Callable[..., VectorIndex]:
-    def build(data, seed=0, **kw):
-        raise NotImplementedError(
-            f"index kind {kind!r} (HNSW / Vamana graph walks, index/graph.py) "
-            "is not ported yet: it is queued in ROADMAP.md, Queue 1, as the "
-            "graph slice; use 'ivf' or 'flat'")
-    return build
-
-
 BUILDERS: dict[str, Callable[..., VectorIndex]] = {
-    "hnsw": _graph_kind("hnsw"),
-    "diskann": _graph_kind("diskann"),
+    "hnsw": lambda data, seed=0, device=None, **kw: HNSWIndex(
+        data, seed=seed, device=device, **kw),
+    "diskann": lambda data, seed=0, device=None, **kw: VamanaIndex(
+        data, seed=seed, device=device, **kw),
     "ivf": lambda data, seed=0, device=None, **kw: IVFFlatIndex(
         data, seed=seed, device=device,
         **{k: v for k, v in kw.items() if k != "col_dims"}),

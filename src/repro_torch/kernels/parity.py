@@ -58,7 +58,19 @@ CARD_CASES = {**CASES,
                                      n_dead=500),
               "b65_two_tiles": dict(B=65, N=3000, d=40, k=30, n_dead=20),
               "b1_k2048": dict(B=1, N=300_000, d=32, k=2048),
-              "b64_k300": dict(B=64, N=100_000, d=64, k=300)}
+              "b64_k300": dict(B=64, N=100_000, d=64, k=300),
+              # the filtered and mutated serving paths' operands: a predicate
+              # keep bitmap (``keep`` = the share of rows it keeps) with
+              # tombstones, on the base alone and on base + delta in one
+              # launch; a keep bitmap sparser than k (empty tail slots); and
+              # the semantic-cache probe's shape (k = 1 over a 256-row
+              # ring buffer filled to 200)
+              "keep_masked": dict(B=64, N=20_000, d=96, k=100, valid_n=19_990,
+                                  n_dead=200, keep=0.1),
+              "delta_keep": dict(B=64, N=10_112, d=64, k=100, n_dead=100, keep=0.5,
+                                 delta=dict(N=300, valid_n=290, n_dead=20, keep=0.5)),
+              "sparse_keep": dict(B=8, N=50_000, d=32, k=64, keep=0.001),
+              "cache_probe_k1": dict(B=64, N=256, d=96, k=1, valid_n=200)}
 
 TOL_REL = 1e-5
 
@@ -86,6 +98,9 @@ def case_arrays(case: dict, seed: int = 0):
             m[rng.choice(n, size=n_dead, replace=False)] = True
         return m
 
+    def keep(n, share):
+        return None if share is None else rng.random(n) < share
+
     kw = dict(valid_n=case.get("valid_n"),
               dead_mask=dead(case["N"], case.get("n_dead")))
     dl = case.get("delta")
@@ -93,6 +108,10 @@ def case_arrays(case: dict, seed: int = 0):
         kw.update(delta=rng.standard_normal((dl["N"], case["d"])).astype(np.float32),
                   delta_valid_n=dl.get("valid_n"),
                   delta_dead_mask=dead(dl["N"], dl.get("n_dead")))
+    if "keep" in case:
+        kw["keep_mask"] = keep(case["N"], case["keep"])
+        if dl:
+            kw["delta_keep_mask"] = keep(dl["N"], dl.get("keep"))
     return q, db, kw
 
 
@@ -117,10 +136,11 @@ def case_tensors(name: str, dtype, device):
 def combined_plain_scores(q, db, metric, kw, bn=128):
     """Masked plain scores over the combined id space (delta after the base
     rows padded to ``bn``), as the streaming scan numbers its ids."""
-    s = _masked_scores(q, db, metric, kw.get("valid_n"), kw.get("dead_mask"), None)
+    s = _masked_scores(q, db, metric, kw.get("valid_n"), kw.get("dead_mask"),
+                       kw.get("keep_mask"))
     if kw.get("delta") is not None:
         ds = _masked_scores(q, kw["delta"], metric, kw.get("delta_valid_n"),
-                            kw.get("delta_dead_mask"), None)
+                            kw.get("delta_dead_mask"), kw.get("delta_keep_mask"))
         s = torch.cat([pad_to(s, 1, bn, value=NEG_INF), ds], dim=1)
     return s
 
@@ -159,19 +179,22 @@ def two_pass_scan(q, db, k: int, metric: str, kw: dict, bn: int = 128):
     """The two-pass scan (distance kernel -> mask -> top-k kernel,
     ``fused_scan``) over the streaming scan's combined id space: the base
     rows padded to ``bn``, then the delta rows; padding, rows past each
-    source's valid count and dead rows masked. ``k`` is the streaming scan's
-    (already clamped), so both return the same slots."""
-    def dead(n, valid, mask):
+    source's valid count, dead rows and rows outside the keep bitmap masked.
+    ``k`` is the streaming scan's (already clamped), so both return the same
+    slots."""
+    def dead(n, valid, mask, keep):
         bad = torch.arange(n, device=q.device) >= (n if valid is None else valid)
-        return bad if mask is None else bad | mask
+        bad = bad if mask is None else bad | mask
+        return bad if keep is None else bad | ~keep
 
-    rows, bad = db, dead(db.shape[0], kw.get("valid_n"), kw.get("dead_mask"))
+    rows = db
+    bad = dead(db.shape[0], kw.get("valid_n"), kw.get("dead_mask"), kw.get("keep_mask"))
     if kw.get("delta") is not None:
         delta = kw["delta"]
         rows = torch.cat([pad_to(db, 0, bn), delta])
         bad = torch.cat([pad_to(bad, 0, bn, value=True),
                          dead(delta.shape[0], kw.get("delta_valid_n"),
-                              kw.get("delta_dead_mask"))])
+                              kw.get("delta_dead_mask"), kw.get("delta_keep_mask"))])
     return fused_scan(q, rows, k=k, metric=metric, dead_mask=bad)
 
 

@@ -73,9 +73,14 @@ def scan_grid(B: int, Nb: int, Nd: int, k: int, sm_count: int = H100_SMS) -> Sca
 
 
 def _row_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:
-    """(n,) uint8 row bitmap for the kernel (cut or padded with 0)."""
+    """(n,) row bitmap of one byte a row for the kernel (cut or padded with
+    0). A bool or uint8 mask of exactly n rows goes as it is (a bool is one
+    byte of 0 or 1), so a cached mask costs no copy a launch."""
     if mask is None:
         return None
+    if (mask.dtype in (torch.bool, torch.uint8) and mask.shape[0] == n
+            and mask.is_contiguous()):
+        return mask
     return fit_mask(mask, n).to(torch.uint8).contiguous()
 
 

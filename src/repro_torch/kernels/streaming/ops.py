@@ -7,6 +7,14 @@ from repro_torch.kernels.common import METRIC_CODES
 from repro_torch.kernels.streaming.kernel import streaming_scan_cuda
 from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
 
+# delta rows are numbered after the base rows rounded up to this block
+DELTA_ID_BLOCK = 128
+
+
+def delta_id_offset(n_base: int, bn: int = DELTA_ID_BLOCK) -> int:
+    """The combined id of delta row 0 over ``n_base`` base rows."""
+    return -(-n_base // bn) * bn
+
 
 def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
                          metric: str = "dot",
@@ -17,7 +25,7 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
                          delta_dead_mask: torch.Tensor | None = None,
                          keep_mask: torch.Tensor | None = None,
                          delta_keep_mask: torch.Tensor | None = None,
-                         bn: int = 128
+                         bn: int = DELTA_ID_BLOCK
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, d) queries over (N, d) base rows — plus an optional (Nd, d)
     delta source — -> top-k (values, ids) without a (B, N) score matrix.
@@ -26,7 +34,7 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
     set in ``dead_mask`` / ``delta_dead_mask`` (tombstones) and rows unset in
     ``keep_mask`` / ``delta_keep_mask`` (predicate bitmaps). Ids are
     combined-physical: base row i is id i; delta row r is id
-    ``round_up(Nb, bn) + r`` (the padded base row count). Results are best
+    ``delta_id_offset(Nb, bn) + r`` (the padded base row count). Results are best
     first, equal scores by ascending id; when fewer than k live rows exist
     the tail slots are (NEG_INF, 0). k is clamped to Nb + Nd only; callers
     that need the two-pass ``min(k, valid_n)`` narrowing clamp first.
@@ -55,11 +63,11 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
         q, db, k_eff, metric,
         Nb if valid_n is None else valid_n, dead_mask, keep_mask,
         delta, Nd if delta_valid_n is None else delta_valid_n,
-        delta_dead_mask, delta_keep_mask, delta_id_offset=-(-Nb // bn) * bn)
+        delta_dead_mask, delta_keep_mask, delta_id_offset=delta_id_offset(Nb, bn))
     streaming_fused_scan.launches += 1
     return out
 
 
 streaming_fused_scan.launches = 0
 
-__all__ = ["streaming_fused_scan"]
+__all__ = ["DELTA_ID_BLOCK", "delta_id_offset", "streaming_fused_scan"]

@@ -23,7 +23,7 @@ from repro_torch.data.vectors import make_database
 from repro_torch.index.base import exact_topk
 from repro_torch.index.bruteforce import FlatIndex, batch_exact_topk
 from repro_torch.index.ivf import IVFFlatIndex, _lloyd, _scan_gathered
-from repro_torch.index.registry import BUILDERS, IndexStore
+from repro_torch.index.registry import IndexStore
 
 CPU = torch.device("cpu")
 
@@ -117,12 +117,6 @@ def test_exact_topk_copy_matches_jax(data):
     ids1, s1 = exact_topk(data, qv, 50)
     np.testing.assert_array_equal(ids0, ids1)
     np.testing.assert_array_equal(s0, s1)
-
-
-@pytest.mark.parametrize("kind", ["hnsw", "diskann"])
-def test_graph_kinds_raise_until_their_slice(data, kind):
-    with pytest.raises(NotImplementedError, match="graph slice"):
-        BUILDERS[kind](data, seed=0, device="cpu")
 
 
 def test_index_store_builds_on_its_device():

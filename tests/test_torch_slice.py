@@ -32,17 +32,19 @@ from repro.serve.columnstore import padded_device_bytes as jax_padded_bytes
 from repro.serve.compiler import compile_batch as jax_compile_batch
 from repro.serve.engine import BatchEngine as JaxEngine
 from repro_torch import convert
-from repro_torch.core.planner import QueryPlanner
 from repro_torch.core.tuner import Mint, execute_workload, ground_truth_cache
 from repro_torch.core.types import Constraints, IndexSpec, QueryPlan
 from repro_torch.data.vectors import make_database, make_queries, make_workload
+from repro_torch.filter import Eq, synth_attributes
 from repro_torch.index.bruteforce import batch_exact_topk
+from repro_torch.index.graph import HNSWIndex, VamanaIndex, build_knn_graph
 from repro_torch.index.ivf import IVFFlatIndex
+from repro_torch.ingest import Compactor, DeltaSegments, MutableTable, MutationView
 from repro_torch.index.registry import IndexStore
 from repro_torch.launch.roofline import modeled_scan_bytes
 from repro_torch.serve.columnstore import ColumnStore, padded_device_bytes
 from repro_torch.serve.compiler import compile_batch
-from repro_torch.serve.engine import BatchEngine
+from repro_torch.serve.engine import BatchEngine, cache_probe_scan
 
 ROOT = Path(__file__).resolve().parents[1]
 COLS = [("a", 32), ("b", 48), ("c", 24)]
@@ -268,7 +270,8 @@ def test_column_store_padding_and_bytes(dbs):
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -294,7 +297,27 @@ ENTRY_POINTS = {
     "IVFFlatIndex": lambda db: IVFFlatIndex(db.columns[0]),
     "batch_exact_topk": lambda db: batch_exact_topk(db.columns[0],
                                                     db.columns[0][:2], 3),
+    "HNSWIndex": lambda db: HNSWIndex(db.columns[0]),
+    "VamanaIndex": lambda db: VamanaIndex(db.columns[0]),
+    "build_knn_graph": lambda db: build_knn_graph(db.columns[0], 4),
+    "MutationView": lambda db: MutationView(MutableTable(db)),
+    "DeltaSegments": lambda db: DeltaSegments(MutableTable(db)),
+    "Compactor": lambda db: Compactor(MutableTable(db)),
+    "AttributeStore.device_bitmap": lambda db: synth_attributes(db.n_rows).device_bitmap(
+        Eq("category", "cat0"), np.arange(db.n_rows)),
+    "cache_probe_scan": lambda db: cache_probe_scan(db.columns[0][:2], db.columns[0], 10),
+    "torch_quickstart.run": lambda db: _torch_quickstart().run(64),
 }
+
+
+def _torch_quickstart():
+    import sys
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_quickstart
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    return torch_quickstart
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -308,20 +331,9 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name):
 
 def test_unported_paths_raise(dbs):
     eng = BatchEngine(dbs[0], device="cpu")
-    for call in (lambda: eng.attach_mutations(None),
-                 lambda: eng.attach_filters(None),
-                 lambda: eng.stage_batch([]),
-                 lambda: eng.cache_probe(None, None, 0),
+    for call in (lambda: eng.stage_batch([]),
+                 lambda: eng.search_batch([], staged=object()),
                  lambda: BatchEngine(dbs[0], mesh=object(), device="cpu"),
-                 lambda: ColumnStore(dbs[0], mesh=object(), device="cpu"),
-                 lambda: Mint(dbs[0], attributes=object(), device="cpu")):
+                 lambda: ColumnStore(dbs[0], mesh=object(), device="cpu")):
         with pytest.raises(NotImplementedError):
             call()
-
-
-def test_vectorized_dp_raises_until_its_slice(dbs, workloads, carried_tuned):
-    planner = QueryPlanner(carried_tuned[0].estimators, dbs[0], use_jax_dp=True)
-    q = workloads[0].queries[3]
-    specs = [IndexSpec((c,), "ivf") for c in q.vid] + [IndexSpec(q.vid, "ivf")]
-    with pytest.raises(NotImplementedError, match="planner_jax"):
-        planner.plan(q, frozenset(specs))
