@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of MINT on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rows N] [--graph-rows N]
+    python3 chip_smoke.py [--rows N] [--online-queries N] [--graph-rows N]
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
 into ``build/kernels/``), then:
@@ -54,15 +54,29 @@ into ``build/kernels/``), then:
      which the flat ids are unchanged;
   7. the semantic-cache probe (phase ``cache_probe``, 64 x 256 rows
      filled to 200) and the torch DP against the Python DP (phase
-     ``planner_dp``); then each new kernel use (keep-masked scan, merged
-     base + delta scan, cache probe, distance at the largest pre-filter
-     gather) held against its plain version and timed as in 4;
-  8. the same path on the CPU and on the card at the serving-test scale
-     (2,500 rows): configuration, plans, numDist, costs and ids must agree;
-     then the torch quickstart (``examples/torch_quickstart.py``) over
+     ``planner_dp``);
+  8. the online runtime on that tuned database (phase ``online_path``,
+     ``--online-queries`` arrivals, a third of them exact re-arrivals):
+     ``OnlineRuntime`` sync, async on a worker pool with staged uploads and
+     without (ids equal), with the semantic cache (every re-arrival hits,
+     probes scan the namespace's resident CUDA matrix, ids equal), observed
+     (ids equal; ``launch/obs_report`` stage rows); an ``IngestRuntime``
+     with 1% inserts and 1% deletes and a forced async compaction (every
+     flush sees one (store, generation, table) state, flat ids equal the
+     live oracle after the finalize); a drift to column 0 that fires one
+     pooled retune (tune and shadow build on a worker thread while this
+     thread serves, post-swap recall >= theta). Then each new kernel use
+     (keep-masked scan, merged base + delta scan, cache probe with kept
+     norms, distance at the largest pre-filter gather, the online probe and
+     the online rerank) held against its plain version and timed as in 4;
+  9. the same path on the CPU and on the card at the serving-test scale
+     (2,500 rows): configuration, plans, numDist, costs and ids must agree,
+     and a StepExecutor-driven async online run of 48 arrivals gives equal
+     ids, flush, plan-cache and semantic-cache stats; then the torch
+     quickstart (``examples/torch_quickstart.py``) over
      ``hnsw`` at 100,000 rows (phase ``graph_path``; MINT's recall >=
      theta) and its plans over ``diskann``;
-  9. the model substrate's serving path at Gemma-2-27B's full width and
+  10. the model substrate's serving path at Gemma-2-27B's full width and
      depth (46 layers, d_model 4608, 32 / 16 heads of 128, d_ff 36864,
      vocab 256000; 27.2e9 random bf16 parameters from a seed), after the
      MINT phases' tensors are released: a prefill of 2 prompts x 8192
@@ -72,13 +86,13 @@ into ``build/kernels/``), then:
      Attention runs in the flash kernel, whose launches are zeroed before
      and read after. The q / k / v of the first local and first global
      layer's prefill and of one decode step are noted;
-  10. the flash kernel against its plain version at those noted calls, in
+  11. the flash kernel against its plain version at those noted calls, in
      bf16 and again in float32 on the same inputs, and timed beside the
      plain version, the library call of the same function (flex_attention
      with a softcap score_mod and a causal + window block mask, compiled),
      an SDPA call that does less work (no softcap), and the bound at the
      bf16 tensor-core rate;
-  11. the same model path on the CPU and on the card at
+  12. the same model path on the CPU and on the card at
      ``gemma2-27b.reduced()``: logits within the same tolerance, the same
      top-1 tokens.
 
@@ -93,6 +107,7 @@ import gc
 import json
 import math
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -370,7 +385,7 @@ def phase_main_path(rows: int, dev) -> dict:
     r.pop("undo_dispatches")()
     undo_two()
     return dict(counts=counts, col=col, qmat=qmat, k=q.k, dispatches=dispatches.largest,
-                db=db, workload=workload, path=r, two=two)
+                db=db, workload=workload, path=r, two=two, cstore=r["engine"].cstore)
 
 
 # ---- times at the main path's shapes -----------------------------------------------
@@ -914,7 +929,7 @@ def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev
     and its bound. Launches are the counts of the phase that drove the use;
     bounds count what this run's data needs (the kept or live rows)."""
     from repro_torch.kernels.distance.kernel import batched_scores
-    from repro_torch.kernels.distance.ref import batched_scores_ref
+    from repro_torch.kernels.distance.ref import batched_scores_ref, squared_norms
     from repro_torch.kernels.parity import (check_scores, check_topk,
                                             combined_plain_scores, two_pass_scan)
     from repro_torch.kernels.streaming.ops import streaming_fused_scan
@@ -926,15 +941,16 @@ def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev
     rows = []
 
     def scan_row(use, kw, launches, library_call, live_rows, mask_bytes, qq=q, xx=x,
-                 kk=k, metric="dot", **extra):
-        vals, ids = streaming_fused_scan(qq, xx, k=kk, metric=metric, **kw)
+                 kk=k, metric="dot", kernel_kw=None, **extra):
+        kernel_kw = dict(kw, **(kernel_kw or {}))
+        vals, ids = streaming_fused_scan(qq, xx, k=kk, metric=metric, **kernel_kw)
         rvals, rids = streaming_fused_scan_ref(qq, xx, kk, metric=metric, **kw)
         full = combined_plain_scores(qq, xx, metric, kw)
         err, swaps = check_topk(vals, ids, rvals, rids, full, qq.shape[1], f"scan {use}")
         v2, i2 = two_pass_scan(qq, xx, kk, metric, kw)
         check(torch.equal(v2, vals) and torch.equal(i2, ids),
               f"two-pass scan differs from the streaming scan ({use})")
-        ms = cuda_ms(lambda: streaming_fused_scan(qq, xx, k=kk, metric=metric, **kw))
+        ms = cuda_ms(lambda: streaming_fused_scan(qq, xx, k=kk, metric=metric, **kernel_kw))
         plain = cuda_ms(lambda: streaming_fused_scan_ref(qq, xx, kk, metric=metric, **kw))
         lib = cuda_ms(library_call)
         bq, dd = qq.shape
@@ -970,12 +986,18 @@ def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev
              live, N + dn, shape=[B, N, dn, d, k],
              library="matmul + masked_fill + topk over the concatenation")
     del both, dead_both
-    # the cache probe: l2, k = 1 over the 256-row cache matrix filled to 200
+    # the cache probe: l2, k = 1 over the 256-row cache matrix filled to 200,
+    # resident with its squared norms kept beside it (as the semantic cache
+    # keeps them); also timed recomputing the norms on every call
     qp, mp, valid = probe["q"], probe["m"], probe["valid"]
+    mp_sq = squared_norms(mp)
+    ms_norms = cuda_ms(lambda: streaming_fused_scan(qp, mp, k=1, metric="l2",
+                                                    valid_n=valid))
     scan_row("cache_probe", dict(valid_n=valid), probe["launches"],
              lambda: torch.cdist(qp, mp[:valid]).min(dim=1), valid, 0, qq=qp, xx=mp,
-             kk=1, metric="l2", shape=[qp.shape[0], mp.shape[0], qp.shape[1], 1],
-             library="cdist + min")
+             kk=1, metric="l2", kernel_kw=dict(db_sq=mp_sq),
+             shape=[qp.shape[0], mp.shape[0], qp.shape[1], 1],
+             library="cdist + min", ms_recomputing_norms=ms_norms)
     # distance at the largest pre-filter gather (its own queries and rows)
     rec = filt["prefilter"]
     qg, xg = rec["qmat"], rec["rows"]()
@@ -995,12 +1017,383 @@ def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev
     return rows
 
 
+# ---- the online runtime on the card --------------------------------------------------
+
+ONLINE_QUERIES = 96      # the online trace's arrivals: 2/3 fresh, 1/3 exact re-arrivals
+ONLINE_BUDGET_S = 250.0  # the phase's share of the script's time limit
+# the drift phase's "night" traffic: column 0 (glove25), which no bisimple
+# query touches, with columns the day traffic also uses
+NIGHT_VIDS = [(0,), (0, 4), (0, 6), (0, 3, 5)]
+
+
+def online_trace(db, wl, n: int, seed: int = 11):
+    """A steady bisimple trace of ``n`` arrivals at 1,000 queries/s: the first
+    n - n // 3 fresh, then n // 3 exact re-arrivals (the same ``Query``
+    vectors under new qids) of the earliest fresh ones, 50 ms after the last
+    fresh arrival, when every one of them has flushed."""
+    from dataclasses import replace
+    from repro_torch.online import steady_trace
+    from repro_torch.online.trace import TimedQuery
+    n_rep = n // 3
+    fresh = steady_trace(db, wl, n=n - n_rep, qps=1000.0, seed=seed, qid_start=200_000)
+    t0 = fresh[-1].t + 0.05
+    reps = [TimedQuery(t=t0 + i * 1e-3, query=replace(tq.query, qid=300_000 + i))
+            for i, tq in enumerate(fresh[:n_rep])]
+    return fresh + reps, n_rep
+
+
+def online_engine(main, dispatches=None):
+    """A fresh engine over the main path's database, built store and resident
+    columns (the main engine's own counters and attachments stay apart)."""
+    from repro_torch.serve.engine import BatchEngine
+    eng = BatchEngine(main["db"], store=main["path"]["store"], cstore=main["cstore"])
+    if dispatches is not None:
+        dispatches.attach(eng)
+    return eng
+
+
+def serve_online(rt, trace) -> dict:
+    """Replays ``trace`` through ``rt`` with the launch counts zeroed just
+    before and read just after; returns ids, wall time, stats, launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = rt.run_trace(trace)
+    ids = [np.asarray(t.result(timeout=600)) for t in tickets]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+    st = rt.stats()
+    return dict(ids=ids, tickets=tickets, wall_s=wall, launches=launches, stats=st,
+                summary=dict(wall_s=wall, batches=st["batcher"]["batches"],
+                             mean_batch=st["batcher"]["mean_batch"],
+                             scan_launches=launches["streaming_fused_scan"],
+                             distance_launches=launches["batched_scores"],
+                             dispatch_counters=st["dispatches"]))
+
+
+def host_rss_gib() -> float:
+    """This process's resident host memory now (GiB)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def same_ids(a, b, what: str) -> None:
+    check(len(a) == len(b), f"{what}: {len(a)} tickets vs {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(np.array_equal(x, y), f"{what}: ticket {i} ids differ")
+
+
+def phase_online_path(main: dict, dev, queries: int) -> dict:
+    """The online runtime over the main path's tuned 1,000,000-row database:
+    sync vs async flush (staged and unstaged) on a real worker pool, the
+    semantic cache (exact re-arrivals hit), the observer, an
+    ``IngestRuntime`` with 1% churn each way and a forced async compaction,
+    then a drift to other columns that fires one pooled retune."""
+    from dataclasses import replace
+    from repro_torch.core.types import QueryPlan, Workload
+    from repro_torch.data.vectors import make_queries
+    from repro_torch.ingest import CompactionPolicy, IngestConfig, IngestRuntime
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.obs_report import report
+    from repro_torch.online import OnlineRuntime, RuntimeConfig, churn_trace, diurnal_trace
+    t_phase = time.perf_counter()
+    db, wl, r = main["db"], main["workload"], main["path"]
+    cons, tuned = r["constraints"], r["result"]
+    # the main path's tuner (its trained estimators and sample), without the
+    # attribute store the filter phase attached
+    mint = replace(r["tuner"], attributes=None, _selest=None)
+    if queries != ONLINE_QUERIES:
+        emit("scale_cut", online_queries=queries, online_queries_default=ONLINE_QUERIES)
+    rss0 = host_rss_gib()
+    peak0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    trace, n_rep = online_trace(db, wl, queries)
+    base = dict(max_batch=16, max_delay_ms=5.0, cooldown_s=1e9, drift_threshold=2.0)
+    steps, runs = {}, {}
+    dispatches = DistanceDispatches()
+
+    def run(label, engine=None, **cfg):
+        t0 = time.perf_counter()
+        rt = OnlineRuntime(db, mint, wl, cons, result=tuned, store=r["store"],
+                           engine=engine or online_engine(main),
+                           config=RuntimeConfig(**base, **cfg))
+        out = serve_online(rt, trace)
+        out["rt"] = rt
+        rt.close()
+        runs[label] = out
+        steps[label] = time.perf_counter() - t0
+        emit("online_step", step=label, **out["summary"])
+        return out
+
+    # 1. sync vs async flush, with and without staged uploads
+    sync = run("sync", engine=online_engine(main, dispatches), semcache=False)
+    run("async_staged", semcache=False, async_flush=True, workers=2, stage_transfers=True)
+    run("async_unstaged", semcache=False, async_flush=True, workers=2,
+        stage_transfers=False)
+    for label in ("async_staged", "async_unstaged"):
+        same_ids(runs[label]["ids"], sync["ids"], f"online {label} vs sync")
+    check(sync["launches"]["batched_scores"] > 0, "the online path launched no distance kernel")
+
+    # 2. the semantic cache: every exact re-arrival hits, equal to its uncached ids
+    probes = dict(calls=0, launches=0, resident=0)
+    eng = online_engine(main)
+    probe = eng.cache_probe
+
+    def spy(qmat, mat, valid_n, mat_sq=None):
+        probes["calls"] += 1
+        probes["resident"] += int(isinstance(mat, torch.Tensor)
+                                  and mat.device.type == dev.type
+                                  and mat_sq is not None and mat_sq.device.type == dev.type)
+        before = launch_counts()["streaming_fused_scan"]
+        out = probe(qmat, mat, valid_n, mat_sq)
+        probes["launches"] += launch_counts()["streaming_fused_scan"] - before
+        return out
+    eng.cache_probe = spy
+    sem = run("semcache", engine=eng, semcache=True, semcache_epsilon=0.0)
+    same_ids(sem["ids"], sync["ids"], "online semcache vs uncached")
+    hits = [i for i, t in enumerate(sem["tickets"]) if t.cache_hit]
+    check(hits == list(range(len(trace) - n_rep, len(trace))),
+          f"semcache hits at tickets {hits[:8]}..., expected the {n_rep} re-arrivals")
+    check(probes["calls"] > 0 and probes["resident"] == probes["calls"],
+          f"{probes['calls'] - probes['resident']} probes took a host matrix")
+    sc = sem["rt"].semcache
+    probed = [ns for ns in sc._ns.values() if ns.dev is not None]
+    check(probed and all(isinstance(ns.dev, torch.Tensor) and ns.dev.device.type == dev.type
+                         for ns in probed), "a probed namespace matrix is not on the card")
+
+    # 3. the observer: the same ids, and the per-stage breakdown
+    obs = run("observed", semcache=True, semcache_epsilon=0.0, observe=True)
+    same_ids(obs["ids"], sem["ids"], "online observe on vs off")
+    rep = report(obs["rt"].observer)
+    stage_rows = {name: dict(count=row["count"], p50_ms=row["p50_ms"], p99_ms=row["p99_ms"])
+                  for name, row in rep["breakdown"]["stages"].items()}
+    check({"dispatch", "merge", "semcache_probe"} <= set(stage_rows),
+          f"observed stages {sorted(stage_rows)}")
+
+    # 4. IngestRuntime: 1% inserts + 1% deletes, one forced async compaction.
+    #    Maintenance is driven by hand, so the finalize (the atomic rebase)
+    #    lands after the whole post-cut trace: every flush after the cut runs
+    #    while the compaction is built or waits to be installed
+    t0 = time.perf_counter()
+    ing = IngestRuntime(db, mint, wl, cons, result=tuned, store=r["store"],
+                        engine=online_engine(main),
+                        config=RuntimeConfig(**base, semcache=False),
+                        ingest=IngestConfig(policy=CompactionPolicy(
+                            max_delta_fraction=None, max_dead_fraction=None),
+                            min_mutated_rows=10**9, auto_maintain=False,
+                            async_compaction=True))
+    batch = CHURN_ROWS // 12
+    events = churn_trace(db, wl, n=queries // 2, qps=1000.0,
+                         mutation_rate=24 / (queries // 2), batch=batch,
+                         mix=(0.5, 0.5, 0.0), seed=12, qid_start=400_000)
+    seen, compacting = [], {"on": False}
+    execute = ing.batcher.execute
+
+    def observed_execute(tickets, staged=None):
+        state = (id(ing.engine.store), ing.generation, ing.table.version)
+        out = execute(tickets, staged)
+        seen.append((compacting["on"], state,
+                     (id(ing.engine.store), ing.generation, ing.table.version)))
+        return out
+    ing.batcher.execute = observed_execute
+    reset_launch_counts()
+    cut_at = len(events) // 3
+    for i, ev in enumerate(events):
+        if i == cut_at:
+            check(ing.compact_async(reason="chip_smoke", now=ev.t) is not None,
+                  "the async compaction did not start")
+            compacting["on"] = True
+        if hasattr(ev, "query"):
+            ing.submit(ev.query, ev.t)
+        else:
+            ing.apply_timed(ev)
+        ing.tick(ev.t)
+    ing.drain(events[-1].t)
+    check(not ing.compaction_events, "the compaction was installed before its finalize")
+    ing.wait_maintenance(now=events[-1].t)
+    compacting["on"] = False
+    torch.cuda.synchronize()
+    ing_launches = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+    check(len(ing.compaction_events) == 1 and ing.compaction_events[0].mode == "async",
+          f"compactions: {ing.compaction_events}")
+    check(not ing.builds.failures, f"build failures: {ing.builds.failures}")
+    mid = [s for s in seen if s[0]]
+    check(all(a == b for _, a, b in seen), "a flush saw two (store, generation, table) states")
+    check(len(mid) > 0, "no flush landed while the compaction built")
+    log = ing.table.log.stats()
+    # flat groups after the finalize, over the queries of one or two columns
+    # (one-column concats alias the table; wider ones would copy it again)
+    flat = [(q, QueryPlan(q.qid, [], [], 0.0, 1.0)) for q in wl.queries if len(q.vid) <= 2]
+    swaps = 0
+    for (q, _), got in zip(flat, ing.engine.search_batch(flat)):
+        swaps += same_topk(ing.engine, q, got, ing.engine.ground_truth(q),
+                           f"ingest q{q.qid} after finalize")
+    ev = ing.compaction_events[0]
+    ingest = dict(inserted=log["inserted"], deleted=log["deleted"],
+                  queries=sum(hasattr(e, "query") for e in events),
+                  flushes=len(seen), flushes_mid_compaction=len(mid),
+                  compaction=dict(build_s=ev.build_seconds, replayed=ev.replayed,
+                                  stall_s=ev.stall_s, rows_after=ev.rows_after,
+                                  generation=ev.generation),
+                  launches=ing_launches, flat_oracle_near_tie_swaps=swaps,
+                  failures=len(ing.builds.failures))
+    check(ing_launches["streaming_fused_scan"] > 0, "the ingest runtime launched no scan")
+    ing.close()
+    # the compacted copy of the table and its columns go before the drift
+    # step's retune concatenates the columns it plans over
+    del ing, seen, events, observed_execute, execute
+    gc.collect()
+    steps["ingest"] = time.perf_counter() - t0
+    emit("online_step", step="ingest", seconds=steps["ingest"], **ingest)
+
+    # 5. drift to other columns -> one pooled retune (tune + shadow build on a
+    #    worker thread while this thread serves)
+    t0 = time.perf_counter()
+    night = Workload(queries=make_queries(db, NIGHT_VIDS, k=wl.queries[0].k, seed=5),
+                     probs=np.ones(len(NIGHT_VIDS)))
+    drift = diurnal_trace(db, wl, night, n=queries, qps=1000.0, seed=13,
+                          qid_start=500_000)
+    rt = OnlineRuntime(db, mint, wl, cons, result=tuned, store=r["store"],
+                       engine=online_engine(main),
+                       config=RuntimeConfig(max_batch=16, max_delay_ms=5.0, window=32,
+                                            min_window=16, drift_threshold=0.35,
+                                            cooldown_s=1e9, retune_mode="pool",
+                                            workers=2))
+    builds = dict(n=0, s=0.0)
+    get = rt.store.get
+
+    def timed_get(spec):
+        if spec in rt.store:
+            return get(spec)
+        t = time.perf_counter()
+        out = get(spec)
+        torch.cuda.synchronize()
+        builds["n"] += 1
+        builds["s"] += time.perf_counter() - t
+        return out
+    rt.store.get = timed_get
+    flushes = []
+    execute = rt.batcher.execute
+
+    def gen_execute(tickets, staged=None):
+        g0, inflight = rt.generation, rt.retuner.inflight
+        out = execute(tickets, staged)
+        flushes.append((inflight, g0, rt.generation))
+        return out
+    rt.batcher.execute = gen_execute
+    dr = serve_online(rt, drift)
+    check(len(rt.retune_events) == 1, f"{len(rt.retune_events)} retunes, expected one")
+    check(not rt.retuner.builds.failures, f"retune failures: {rt.retuner.builds.failures}")
+    check(all(a == b for _, a, b in flushes), "a flush saw two generations")
+    during = sum(1 for f in flushes if f[0])
+    rev = rt.retune_events[0]
+    sample = make_queries(db, NIGHT_VIDS * 2, k=wl.queries[0].k, seed=17)
+    recalls = []
+    for i, q in enumerate(sample):
+        q.qid = 600_000 + i
+        tk = rt.submit(q, 10.0 + i * 1e-3)
+        rt.drain(10.0 + i * 1e-3)
+        gt = set(rt.engine.ground_truth(q).tolist())
+        recalls.append(len(gt & set(np.asarray(tk.ids).tolist())) / len(gt))
+    theta = cons.theta_recall
+    check(float(np.mean(recalls)) >= theta,
+          f"post-swap recall {float(np.mean(recalls)):.3f} under {theta}")
+    drift_out = dict(
+        retune=dict(generation=rev.generation, drift=rev.drift, window=rev.window,
+                    config_before=rev.config_before, config_after=rev.config_after,
+                    built=rev.built, dropped=rev.dropped, tune_seconds=rev.tune_seconds,
+                    est_cost_before=rev.est_cost_before, est_cost_after=rev.est_cost_after),
+        configuration=sorted(s.name for s in rt.result.configuration),
+        build_wall_s=builds["s"], builds=builds["n"], flushes=len(flushes),
+        flushes_during_retune=during, post_swap_recall=dict(mean=float(np.mean(recalls)),
+                                                            min=float(min(recalls))),
+        **dr["summary"])
+    rt.close()
+    del r["store"].get  # the main path's store serves unwrapped again
+    steps["drift_retune"] = time.perf_counter() - t0
+
+    seconds = time.perf_counter() - t_phase
+    emit("online_path", rows=db.n_rows, queries=len(trace), re_arrivals=n_rep,
+         seconds=seconds, budget_s=ONLINE_BUDGET_S, step_s=steps,
+         host_rss_gib_at_start=rss0, host_peak_rss_gib_at_start=peak0,
+         host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+         runs={k: v["summary"] for k, v in runs.items()},
+         ids_equal=dict(sync_async_staged=True, sync_async_unstaged=True,
+                        semcache_uncached=True, observe_on_off=True),
+         semcache=dict(hits=sc.hits, misses=sc.misses, near_misses=sc.near_misses,
+                       probes=probes["calls"], probe_launches=probes["launches"],
+                       resident_probes=probes["resident"]),
+         stages=stage_rows, ingest=ingest, drift=drift_out)
+    return dict(launches={k: v["launches"] for k, v in runs.items()}, ingest=ingest,
+                probe_launches=probes["launches"], dispatches=dispatches.largest,
+                sync_launches=sync["launches"], semcache=sc)
+
+
+def phase_online_kernel_times(online: dict, dev, peaks) -> list[dict]:
+    """The online path's kernel uses, held against their plain versions and
+    timed beside their library call and bound: the semantic cache's probe as
+    the runtime makes it (one query over a namespace's resident ring with
+    its kept squared norms; also timed recomputing them), and the distance
+    kernel at the largest rerank of a micro-batch. Launches are the online
+    runs' counts (the semcache run's probes; the sync run's distance)."""
+    from repro_torch.kernels.distance.kernel import batched_scores
+    from repro_torch.kernels.distance.ref import batched_scores_ref
+    from repro_torch.kernels.parity import check_scores, check_topk, combined_plain_scores
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    rows = []
+    ns = max(online["semcache"]._ns.values(), key=lambda ns: (ns.n, ns.queries.shape[1]))
+    m, msq, n = ns.dev, ns.dev_sq, ns.n
+    q = m[:1].clone()
+    C, d = m.shape
+    vals, ids = streaming_fused_scan(q, m, k=1, metric="l2", valid_n=n, db_sq=msq)
+    rvals, rids = streaming_fused_scan_ref(q, m, 1, metric="l2", valid_n=n)
+    full = combined_plain_scores(q, m, "l2", dict(valid_n=n))
+    err, swaps = check_topk(vals, ids, rvals, rids, full, d, "online cache probe")
+    check(int(ids[0, 0]) == 0, "the online probe missed its own row")
+    ms = cuda_ms(lambda: streaming_fused_scan(q, m, k=1, metric="l2", valid_n=n, db_sq=msq))
+    ms_norms = cuda_ms(lambda: streaming_fused_scan(q, m, k=1, metric="l2", valid_n=n))
+    plain = cuda_ms(lambda: streaming_fused_scan_ref(q, m, 1, metric="l2", valid_n=n))
+    lib = cuda_ms(lambda: torch.cdist(q, m[:n]).min(dim=1))
+    nbytes, flops = 4 * (d + n * d) + 8, 2.0 * n * d
+    rows.append(table_row(
+        "streaming_fused_scan[online_cache_probe]", "cuda",
+        "src/repro_torch/csrc/streaming.cu", "src/repro/kernels/streaming/kernel.py:44",
+        online["probe_launches"], err, ms, plain, lib, bound(nbytes, flops, peaks),
+        use="online_cache_probe", shape=[1, C, d, 1], valid_n=n,
+        ms_recomputing_norms=ms_norms, near_tie_swaps=swaps, library="cdist + min",
+        achieved_gbps=nbytes / ms / 1e6))
+    disp = online["dispatches"]
+    kind = "rerank" if "rerank" in disp else "centroids"
+    rec = disp[kind]
+    qd, xd = rec["qmat"], rec["rows"]()
+    (B, dd), nn = qd.shape, xd.shape[0]
+    err = check_scores(batched_scores(qd, xd), batched_scores_ref(qd, xd), dd,
+                       f"distance at the online {kind}")
+    ms = cuda_ms(lambda: batched_scores(qd, xd))
+    plain = cuda_ms(lambda: batched_scores_ref(qd, xd))
+    lib = cuda_ms(lambda: qd @ xd.T)
+    nbytes, flops = 4 * (B * dd + nn * dd + B * nn), 2.0 * B * nn * dd
+    rows.append(table_row(
+        f"batched_scores[online_{kind}]", "cuda", "src/repro_torch/csrc/distance.cu",
+        "src/repro/kernels/distance/kernel.py:23",
+        online["sync_launches"]["batched_scores"], err, ms, plain, lib,
+        bound(nbytes, flops, peaks), use=f"online_{kind}", shape=[B, nn, dd],
+        library="matmul", achieved_gbps=nbytes / ms / 1e6,
+        achieved_tflops=flops / ms / 1e9))
+    return rows
+
+
 # ---- CPU vs card -----------------------------------------------------------------------
 
 
 def phase_cpu_vs_card() -> None:
+    from repro_torch.async_ import StepExecutor
     from repro_torch.core.types import Constraints
     from repro_torch.data.vectors import make_database, make_workload
+    from repro_torch.online import OnlineRuntime, RuntimeConfig
+    from repro_torch.serve.engine import BatchEngine
     db = make_database(2500, [("a", 32), ("b", 48), ("c", 24)], seed=0)
     workload = make_workload(db, "naive", k=10, seed=0)
     constraints = Constraints(theta_recall=0.85, theta_storage=3)
@@ -1019,10 +1412,36 @@ def phase_cpu_vs_card() -> None:
                   f"{key} ids differ for q{m1.qid}")
             check((m1.num_dist, m1.cost) == (m2.num_dist, m2.cost),
                   f"{key} numDist/cost differ for q{m1.qid}")
+    # the online path: an async flush driven by a seeded StepExecutor, with the
+    # semantic cache in front (16 of the 48 arrivals are exact re-arrivals)
+    trace, n_rep = online_trace(db, workload, 48)
+    online = {}
+    for dev, run in runs.items():
+        rt = OnlineRuntime(db, run["tuner"], workload, constraints, result=run["result"],
+                           store=run["store"], engine=BatchEngine(db, store=run["store"]),
+                           executor=StepExecutor(seed=0),
+                           config=RuntimeConfig(max_batch=8, cooldown_s=1e9,
+                                                drift_threshold=2.0, async_flush=True,
+                                                semcache=True, semcache_epsilon=0.0))
+        # fresh arrivals first, drained, so the re-arrivals find them admitted
+        tickets = rt.run_trace(trace[:-n_rep]) + rt.run_trace(trace[-n_rep:])
+        st = rt.stats()
+        online[dev] = dict(ids=[np.asarray(t.result(timeout=60)) for t in tickets],
+                           batcher=st["batcher"], plan_cache=st["plan_cache"],
+                           hits=st["semcache"]["hits"], misses=st["semcache"]["misses"])
+        rt.close()
+    same_ids(online["cuda"]["ids"], online["cpu"]["ids"], "online path CPU vs card")
+    for key in ("batcher", "plan_cache", "hits", "misses"):
+        check(online["cuda"][key] == online["cpu"][key],
+              f"online {key} differs between CPU and card")
+    check(online["cuda"]["hits"] == n_rep, f"{online['cuda']['hits']} semcache hits of {n_rep}")
     emit("cpu_vs_card", rows=2500, configuration_equal=True, plans_equal=True,
          ids_equal=True, num_dist_equal=True, costs_equal=True,
          cost_ratio=a["mint"].weighted_cost / a["per_column"].weighted_cost,
-         cpu_counters=a["counters"], card_counters=b["counters"])
+         cpu_counters=a["counters"], card_counters=b["counters"],
+         online=dict(queries=len(trace), ids_equal=True, batcher=online["cuda"]["batcher"],
+                     plan_cache=online["cuda"]["plan_cache"],
+                     semcache_hits=online["cuda"]["hits"]))
 
 
 # ---- the model substrate: Gemma-2-27B serving through the flash kernel ---------------
@@ -1381,6 +1800,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000,
                     help="rows of the main-path database (cut only if the time "
                          "limit forces it; the cut is printed)")
+    ap.add_argument("--online-queries", type=int, default=ONLINE_QUERIES,
+                    help="arrivals of the online path's traces (cut only if the "
+                         "phase runs past its budget; the cut is printed)")
     ap.add_argument("--graph-rows", type=int, default=GRAPH_ROWS,
                     help="rows of the graph path's quickstart database (cut only "
                          "if the phase runs past 150 s; the cut is printed)")
@@ -1424,8 +1846,16 @@ def main() -> int:
         mut = phase_mutation_path(main_path, filt, dev)
         probe = phase_cache_probe(main_path, dev)
         phase_planner_dp(main_path, dev)
+        # what no later phase reads: the engines the mutation phase swapped
+        # onto its compacted table (its host and card columns) and the
+        # filter phase's planner (its host column concatenations); the
+        # online phase's retune concatenates columns afresh
+        del main_path["path"]["engine"], main_path["two"], filt["planner"]
+        gc.collect()
+        online = phase_online_path(main_path, dev, args.online_queries)
         rows += phase_slice_kernel_times(main_path, filt, mut, probe, dev, peaks)
-        del main_path, filt, mut, probe  # the model needs the card's memory
+        rows += phase_online_kernel_times(online, dev, peaks)
+        del main_path, filt, mut, probe, online  # the model needs the card's memory
         phase_cpu_vs_card()
         if args.graph_rows != GRAPH_ROWS:
             emit("scale_cut", graph_rows=args.graph_rows, graph_rows_default=GRAPH_ROWS)

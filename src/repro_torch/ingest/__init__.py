@@ -9,10 +9,9 @@ immutable indexes —
   - ``compactor`` : policy-triggered fold of delta + tombstones into a new
                     base with shadow-built indexes;
   - ``drift``     : DataDriftDetector — delta fraction, cumulative churn,
-                    per-column centroid shift.
-
-The ingest runtime (the online runtime plus the mutation path) is not
-ported yet (ROADMAP.md, Queue 1).
+                    per-column centroid shift;
+  - ``runtime``   : IngestRuntime — the online runtime plus the mutation
+                    path, async compaction and data-drift retunes.
 """
 from repro_torch.ingest.compactor import (CompactionCut, CompactionPolicy,
                                           CompactionStats, Compactor)
@@ -20,11 +19,14 @@ from repro_torch.ingest.delta import DeltaSegments, MutationView
 from repro_torch.ingest.drift import DataDriftDetector, DataDriftReport
 from repro_torch.ingest.mutation import (DeleteBatch, InsertBatch, MutationLog,
                                          UpsertBatch)
+from repro_torch.ingest.runtime import (CompactionEvent, DataRetuneEvent,
+                                        IngestConfig, IngestRuntime)
 from repro_torch.ingest.table import MutableTable
 
 __all__ = [
-    "CompactionCut", "CompactionPolicy", "CompactionStats", "Compactor",
-    "DataDriftDetector", "DataDriftReport", "DeleteBatch", "DeltaSegments",
-    "InsertBatch", "MutableTable", "MutationLog", "MutationView",
-    "UpsertBatch",
+    "CompactionCut", "CompactionEvent", "CompactionPolicy",
+    "CompactionStats", "Compactor",
+    "DataDriftDetector", "DataDriftReport", "DataRetuneEvent", "DeleteBatch",
+    "DeltaSegments", "IngestConfig", "IngestRuntime", "InsertBatch",
+    "MutableTable", "MutationLog", "MutationView", "UpsertBatch",
 ]

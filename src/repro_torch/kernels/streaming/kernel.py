@@ -87,10 +87,13 @@ def _row_mask(mask: torch.Tensor | None, n: int) -> torch.Tensor | None:
 def streaming_scan_cuda(q: torch.Tensor, db: torch.Tensor, k: int, metric: str,
                         valid_n: int, dead_mask, keep_mask,
                         delta: torch.Tensor | None, delta_valid_n: int,
-                        delta_dead_mask, delta_keep_mask, delta_id_offset: int
+                        delta_dead_mask, delta_keep_mask, delta_id_offset: int,
+                        db_sq: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """One kernel call over base (+ delta) rows -> (B, k) f32 values and
-    int32 ids, best first. ``k`` is already clamped to the combined rows."""
+    int32 ids, best first. ``k`` is already clamped to the combined rows.
+    ``db_sq`` is ``squared_norms(db)`` kept by the caller beside an unchanged
+    base (the semantic cache's matrix), so the call skips that reduction."""
     dev = q.device
     check_cuda_operand("q", q, dev)
     check_cuda_operand("db", db, dev, dtypes=(q.dtype,))
@@ -103,7 +106,14 @@ def streaming_scan_cuda(q: torch.Tensor, db: torch.Tensor, k: int, metric: str,
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     qsq = bsq = dsq = None
     if metric != "dot":
-        qsq, bsq = squared_norms(q), squared_norms(db)
+        qsq = squared_norms(q)
+        if db_sq is None:
+            bsq = squared_norms(db)
+        else:
+            check_cuda_operand("db_sq", db_sq, dev, dtypes=(torch.float32,))
+            if tuple(db_sq.shape) != (Nb,):
+                raise ValueError(f"db_sq shape {tuple(db_sq.shape)} != ({Nb},)")
+            bsq = db_sq
         dsq = None if delta is None else squared_norms(delta)
     g = scan_grid(B, Nb, Nd, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     # the queries transposed to (d, columns) in f32 (exact), zero past B

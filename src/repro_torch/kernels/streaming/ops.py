@@ -25,7 +25,8 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
                          delta_dead_mask: torch.Tensor | None = None,
                          keep_mask: torch.Tensor | None = None,
                          delta_keep_mask: torch.Tensor | None = None,
-                         bn: int = DELTA_ID_BLOCK
+                         bn: int = DELTA_ID_BLOCK,
+                         db_sq: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, d) queries over (N, d) base rows — plus an optional (Nd, d)
     delta source — -> top-k (values, ids) without a (B, N) score matrix.
@@ -38,6 +39,10 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
     first, equal scores by ascending id; when fewer than k live rows exist
     the tail slots are (NEG_INF, 0). k is clamped to Nb + Nd only; callers
     that need the two-pass ``min(k, valid_n)`` narrowing clamp first.
+    ``db_sq``, when given, is ``kernels.distance.ref.squared_norms(db)``
+    computed once by a caller that scans an unchanged base many times; the
+    kernel takes it in place of its own reduction over the base (the same
+    function, so the same values; the plain version recomputes it).
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
     """
@@ -63,7 +68,8 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
         q, db, k_eff, metric,
         Nb if valid_n is None else valid_n, dead_mask, keep_mask,
         delta, Nd if delta_valid_n is None else delta_valid_n,
-        delta_dead_mask, delta_keep_mask, delta_id_offset=delta_id_offset(Nb, bn))
+        delta_dead_mask, delta_keep_mask, delta_id_offset=delta_id_offset(Nb, bn),
+        db_sq=db_sq)
     streaming_fused_scan.launches += 1
     return out
 

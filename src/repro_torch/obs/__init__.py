@@ -1,28 +1,20 @@
-"""Observer seam of the engine: the disabled observer. The metrics registry,
-span tracing and timeline are the observability slice (ROADMAP.md)."""
-from __future__ import annotations
+"""Unified observability: metrics registry, per-ticket span tracing,
+and a runtime timeline, all behind the zero-cost-when-disabled
+:class:`Observer` seam (DESIGN.md §14).
 
-import contextlib
+Render captured state with :mod:`repro_torch.launch.obs_report`.
+"""
+from .metrics import (COUNTER, GAUGE, HISTOGRAM, Histogram, MetricsRegistry,
+                      MetricsSnapshot, hist_quantile, hist_summary)
+from .observer import NULL_OBSERVER, NullObserver, Observer
+from .timeline import Timeline, TimelineEvent
+from .tracing import Span, Trace
 
-
-class NullObserver:
-    """Disabled observer: every method is a no-op, ``enabled`` is False."""
-
-    enabled = False
-
-    def span(self, name, parent=None, t0=None, **attrs):
-        return contextlib.nullcontext()
-
-    def span_at(self, name, t0, t1, parent=None, **attrs):
-        return None
-
-    def current(self):
-        return None
-
-    def counter(self, name, value=1, **labels):
-        return None
-
-
-NULL_OBSERVER = NullObserver()
-
-__all__ = ["NULL_OBSERVER", "NullObserver"]
+__all__ = [
+    "COUNTER", "GAUGE", "HISTOGRAM",
+    "Histogram", "MetricsRegistry", "MetricsSnapshot",
+    "hist_quantile", "hist_summary",
+    "NULL_OBSERVER", "NullObserver", "Observer",
+    "Timeline", "TimelineEvent",
+    "Span", "Trace",
+]

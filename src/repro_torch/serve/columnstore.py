@@ -57,14 +57,18 @@ class DeviceColumn:
         """PADDED device footprint (the governor's accounting unit)."""
         return int(self.data.numel()) * int(self.data.element_size())
 
-    def pad_queries(self, qmat: np.ndarray) -> torch.Tensor:
-        """(B, dim) host queries -> (B, padded_dim) tensor on the column's device."""
+    def pad_host(self, qmat: np.ndarray) -> np.ndarray:
+        """(B, dim) host queries -> (B, padded_dim) contiguous host float32."""
         qmat = np.asarray(qmat, dtype=np.float32)
         if qmat.shape[1] != self.dim:
             raise ValueError(f"query dim {qmat.shape[1]} != column dim {self.dim}")
         if self.padded_dim != self.dim:
             qmat = np.pad(qmat, ((0, 0), (0, self.padded_dim - self.dim)))
-        return torch.as_tensor(qmat, device=self.data.device)
+        return np.ascontiguousarray(qmat)
+
+    def pad_queries(self, qmat: np.ndarray) -> torch.Tensor:
+        """(B, dim) host queries -> (B, padded_dim) tensor on the column's device."""
+        return torch.as_tensor(self.pad_host(qmat), device=self.data.device)
 
 
 class ColumnStore:

@@ -62,10 +62,18 @@ Plan groups are predicate-uniform (``GroupKey.pred``), so the keep bitmap
 is one shared (N,) operand per launch.
 
 ``cache_probe`` is the semantic cache's batched L2 probe: the streaming
-scan at ``metric="l2"``, ``k=1`` over the cache matrix.
+scan at ``metric="l2"``, ``k=1`` over the cache's resident matrix.
 
-One device serves; mesh serving and staged (async) batches raise
-``NotImplementedError`` until their slices (ROADMAP.md, Queue 1).
+Staged batches (DESIGN.md §10): ``stage_batch`` compiles a micro-batch and
+enqueues its padded query uploads from pinned host buffers on the engine's
+side stream, behind an event; ``search_batch(staged=...)`` on a worker
+makes its own stream wait on that event, so the next batch's uploads
+overlap the current batch's kernels and the submitting thread never blocks
+on a pageable copy. The staged bytes are the ones the unstaged path
+uploads, so results are bit-identical.
+
+One device serves; mesh serving raises ``NotImplementedError`` until the
+distributed slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -100,7 +108,28 @@ _DEAD_CUT = NEG_INF / 2
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, Queue 1); the port serves "
-        "from one device, batch by batch")
+        "from one device")
+
+
+@dataclass
+class StagedBatch:
+    """Pre-staged device state for one micro-batch.
+
+    ``stage_batch`` compiles the plan groups and enqueues every padded
+    query upload the batch will need WITHOUT running any kernel. On the
+    card each upload is a ``non_blocking`` copy from a pinned host buffer
+    on the engine's side stream, and ``ready`` is an event recorded after
+    the last one; the executing stream waits on it before the first
+    kernel. ``pinned`` keeps the host sources alive until then. qmats are
+    advisory: execution revalidates each against the live column store's
+    padded width and recomputes on mismatch (a store swap may land between
+    staging and execution)."""
+
+    n: int                                   # batch size staged for
+    groups: list[PlanGroup]
+    qmats: dict[tuple, torch.Tensor]         # (group_idx, slot) -> device qmat
+    ready: object = None                     # torch.cuda.Event on the card
+    pinned: list = field(default_factory=list)
 
 
 @dataclass
@@ -171,16 +200,32 @@ def _gather_scores(data: torch.Tensor, rows: torch.Tensor,
                       for i in range(0, B, step)])
 
 
-def cache_probe_scan(qmat, mat, valid_n: int, device=None):
+def _f32_on(x, device: torch.device, name: str) -> torch.Tensor:
+    """A float32 tensor on ``device``: a tensor already there is taken as it
+    is (no copy), numpy is uploaded once; a tensor elsewhere or of another
+    dtype raises rather than cross the bus unasked."""
+    if isinstance(x, torch.Tensor):
+        on = x.device.type == device.type and device.index in (None, x.device.index)
+        if not on or x.dtype != torch.float32:
+            raise ValueError(f"{name}: {x.dtype} tensor on {x.device}, expected "
+                             f"torch.float32 on {device}")
+        return x
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def cache_probe_scan(qmat, mat, valid_n: int, device=None, mat_sq=None):
     """Batched semantic-cache probe: ONE brute-force L2 dispatch of (B, d)
     query vectors against the cache's (C, d) query matrix — the streaming
     scan at ``metric="l2"``, ``k=1`` on the card, its plain version on the
-    CPU. Returns host (vals, ids) with vals = -(squared L2); rows at or
-    past ``valid_n`` are masked."""
+    CPU. ``mat`` may be the cache's resident float32 tensor on ``device``
+    (scanned in place) or host numpy; ``mat_sq``, its squared row norms kept
+    beside it, spares the kernel that reduction. Returns host (vals, ids)
+    with vals = -(squared L2); rows at or past ``valid_n`` are masked."""
     device = resolve_device(device)
-    q = torch.as_tensor(np.asarray(qmat, dtype=np.float32), device=device)
-    m = torch.as_tensor(np.asarray(mat, dtype=np.float32), device=device)
-    vals, ids = streaming_fused_scan(q, m, k=1, metric="l2", valid_n=int(valid_n))
+    q = _f32_on(qmat, device, "qmat")
+    m = _f32_on(mat, device, "mat")
+    vals, ids = streaming_fused_scan(q, m, k=1, metric="l2", valid_n=int(valid_n),
+                                     db_sq=mat_sq)
     return vals.cpu().numpy(), ids.cpu().numpy()
 
 
@@ -225,6 +270,7 @@ class BatchEngine:
         self.attrs = None
         self.selest = None
         self._filter_cache: dict[tuple, _FilterState] = {}
+        self._stage_stream = None  # side CUDA stream of stage_batch, lazily
 
     # ---- public API -------------------------------------------------------
 
@@ -275,14 +321,86 @@ class BatchEngine:
         mv = self.mview
         return mv if mv is not None and mv.mutated() else None
 
-    def stage_batch(self, pairs):
-        raise _not_ported("staged batches (stage_batch)")
+    def stage_batch(self, pairs: list[tuple[Query, QueryPlan]]) -> StagedBatch:
+        """Compile the batch and enqueue its host→device query uploads now
+        (async flush pipelining). Pure staging: no kernel runs, no counter
+        moves, no serving state changes — safe to call from the submitting
+        thread while a worker executes the previous batch."""
+        groups = compile_batch(pairs)
+        host: dict[tuple, np.ndarray] = {}
+        for gi, group in enumerate(groups):
+            items = group.items
+            if not group.specs:
+                col = self.cstore.device(group.key.vid)
+                host[(gi, -1)] = col.pad_host(
+                    np.stack([it.query.concat() for it in items]))
+                continue
+            for j, spec in enumerate(group.specs):
+                kind = spec.kind if self.store is not None else "flat"
+                if kind in ("flat", "ivf"):
+                    col = self.cstore.device(spec.vid)
+                    host[(gi, j)] = col.pad_host(
+                        np.stack([it.query.concat(spec.vid) for it in items]))
+            if not group.single_exact:
+                col = self.cstore.device(group.key.vid)
+                host[(gi, "rerank")] = col.pad_host(
+                    np.stack([it.query.concat() for it in items]))
+        if self.device.type != "cuda":
+            return StagedBatch(n=len(pairs), groups=groups, qmats={
+                key: torch.as_tensor(arr, device=self.device)
+                for key, arr in host.items()})
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        qmats, pinned = {}, []
+        with torch.cuda.stream(self._stage_stream):
+            for key, arr in host.items():
+                src = torch.from_numpy(arr).pin_memory()
+                dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+                dst.copy_(src, non_blocking=True)
+                qmats[key] = dst
+                pinned.append(src)
+            ready = torch.cuda.Event()
+            ready.record(self._stage_stream)
+        return StagedBatch(n=len(pairs), groups=groups, qmats=qmats,
+                           ready=ready, pinned=pinned)
 
-    def cache_probe(self, qmat, mat, valid_n):
+    def _staged_groups(self, pairs, staged: StagedBatch | None):
+        """(groups, per-group staged-qmat dicts) — falling back to a fresh
+        compile when the staged batch doesn't match the pairs. On the card
+        the executing thread's stream waits on the staging event, and each
+        staged tensor is recorded on that stream so the caching allocator
+        cannot hand its memory out before the kernels that read it end."""
+        if staged is not None and staged.n == len(pairs):
+            if staged.ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(staged.ready)
+                for qmat in staged.qmats.values():
+                    qmat.record_stream(stream)
+            sqs = [{} for _ in staged.groups]
+            for (gi, slot), qmat in staged.qmats.items():
+                sqs[gi][slot] = qmat
+            return staged.groups, sqs
+        groups = compile_batch(pairs)
+        return groups, [None] * len(groups)
+
+    @staticmethod
+    def _staged_qmat(sq, slot, col: DeviceColumn):
+        """A staged qmat for this slot, if it still matches the live column
+        store's padded width (a swap between staging and execution changes
+        ``cstore``; values are recomputed then)."""
+        if sq is None:
+            return None
+        qmat = sq.get(slot)
+        if qmat is not None and qmat.shape[1] == col.padded_dim:
+            return qmat
+        return None
+
+    def cache_probe(self, qmat, mat, valid_n, mat_sq=None):
         """Semantic-cache probe hook: one batched L2 dispatch of query
         vectors against the cache's query matrix on this engine's device
         (``cache_probe_scan``)."""
-        return cache_probe_scan(qmat, mat, valid_n, device=self.device)
+        return cache_probe_scan(qmat, mat, valid_n, device=self.device,
+                                mat_sq=mat_sq)
 
     def ground_truth(self, query: Query) -> np.ndarray:
         """Exact top-k ids for one query against the LIVE serving state —
@@ -298,30 +416,27 @@ class BatchEngine:
                             query.k)
         return ids
 
-    def _groups(self, pairs, staged):
-        if staged is not None:
-            raise _not_ported("staged batches (stage_batch)")
-        return compile_batch(pairs)
-
     def search_batch(self, pairs: list[tuple[Query, QueryPlan]],
-                     staged=None) -> list[np.ndarray]:
+                     staged: StagedBatch | None = None) -> list[np.ndarray]:
         """Serving form: top-k ids per query, in batch order."""
         out: list[np.ndarray | None] = [None] * len(pairs)
-        for group in self._groups(pairs, staged):
-            ids_list, _, _, _ = self._observed_group(group)
+        groups, sqs = self._staged_groups(pairs, staged)
+        for group, sq in zip(groups, sqs):
+            ids_list, _, _, _ = self._observed_group(group, sq)
             for item, ids in zip(group.items, ids_list):
                 out[item.pos] = ids
         return out  # type: ignore[return-value]
 
     def execute_batch(self, pairs: list[tuple[Query, QueryPlan]],
                       gt_cache: dict[int, np.ndarray] | None = None,
-                      staged=None) -> list:
+                      staged: StagedBatch | None = None) -> list:
         """Measurement form: ``ExecutionMetrics`` per query, batch order."""
         from repro_torch.core.tuner import ExecutionMetrics  # metrics stay in core
         out = [None] * len(pairs)
-        for group in self._groups(pairs, staged):
+        groups, sqs = self._staged_groups(pairs, staged)
+        for group, sq in zip(groups, sqs):
             t0 = time.time()
-            ids_list, costs, ndists, eks_maps = self._observed_group(group)
+            ids_list, costs, ndists, eks_maps = self._observed_group(group, sq)
             gts = self._group_ground_truth(group, gt_cache)
             wall = (time.time() - t0) * 1e3 / max(group.batch, 1)
             for item, ids, cost, nd, eks, gt in zip(
@@ -356,15 +471,17 @@ class BatchEngine:
 
     # ---- group execution --------------------------------------------------
 
-    def _observed_group(self, group: PlanGroup):
+    def _observed_group(self, group: PlanGroup, sq: dict | None = None):
         """``_run_group`` wrapped in a ``plan_group`` span carrying the plan
         signature, index kinds, batch size and modeled bytes; the span's
-        parent accumulates the group bytes."""
+        parent accumulates the group bytes. The span ends after the group's
+        results reached the host (every group ends in a ``.cpu()``), so it
+        times the device work, not only its enqueue."""
         if not self.obs.enabled:
-            return self._run_group(group)
+            return self._run_group(group, sq)
         attrs = self._group_attrs(group)
         with self.obs.span("plan_group", **attrs):
-            out = self._run_group(group)
+            out = self._run_group(group, sq)
         self.obs.counter("plan_groups")
         parent = self.obs.current()
         if parent is not None:
@@ -403,12 +520,18 @@ class BatchEngine:
                 "access": group.key.access, "batch": B, "rows": N,
                 "hbm_bytes_modeled": float(hbm)}
 
-    def _qmat(self, col: DeviceColumn, items, vid=None) -> torch.Tensor:
+    def _qmat(self, col: DeviceColumn, items, vid=None, sq=None,
+              slot=None) -> torch.Tensor:
+        """The group's padded (B, padded_dim) queries on the device: the
+        staged upload for ``slot`` when one is valid, else a fresh one."""
+        qmat = self._staged_qmat(sq, slot, col)
+        if qmat is not None:
+            return qmat
         return col.pad_queries(np.stack([it.query.concat(vid) for it in items]))
 
-    def _run_group(self, group: PlanGroup):
+    def _run_group(self, group: PlanGroup, sq: dict | None = None):
         if group.key.pred is not None:
-            return self._run_group_filtered(group)
+            return self._run_group_filtered(group, sq)
         specs, buckets = group.specs, group.buckets
         items = group.items
         B = len(items)
@@ -419,7 +542,7 @@ class BatchEngine:
 
         if not specs:  # flat-scan fallback group (no useful index / all ek=0)
             col = self.cstore.device(group.key.vid)
-            qmat = self._qmat(col, items)
+            qmat = self._qmat(col, items, sq=sq, slot=-1)
             if mv is None:
                 ids = self._flat_scan(col, qmat, min(group.max_k, col.n_rows))
                 out_ids = []
@@ -457,10 +580,10 @@ class BatchEngine:
             delta_merged = False
             if kind == "ivf":
                 self._ivf_scan(group, spec, j, cand, costs, ndists,
-                               mv=mv, scored=scored)
+                               mv=mv, scored=scored, sq=sq)
             elif kind == "flat":
                 col = self.cstore.device(spec.vid)
-                qmat = self._qmat(col, items, spec.vid)
+                qmat = self._qmat(col, items, spec.vid, sq=sq, slot=j)
                 if mv is None:
                     ids = self._flat_scan(col, qmat, min(bucket, col.n_rows))
                     for i, it in enumerate(items):
@@ -504,7 +627,7 @@ class BatchEngine:
             out_ids = [cand[i][0][: items[i].query.k] for i in range(B)]
             return out_ids, costs, ndists, eks_maps
 
-        out_ids = self._rerank(group, cand, mv=mv)
+        out_ids = self._rerank(group, cand, mv=mv, sq=sq)
         for i, it in enumerate(items):
             total_ek = int(sum(it.eks))  # duplicates counted — Eq. 6
             costs[i] += float(it.query.dim() * total_ek)
@@ -583,7 +706,7 @@ class BatchEngine:
         self._filter_cache[key] = st
         return st
 
-    def _run_group_filtered(self, group: PlanGroup):
+    def _run_group_filtered(self, group: PlanGroup, sq: dict | None = None):
         if self.attrs is None:
             raise ValueError(
                 "query carries a predicate but no AttributeStore is "
@@ -599,8 +722,8 @@ class BatchEngine:
             return ([np.empty(0, np.int64) for _ in range(B)],
                     [0.0] * B, [0] * B, [{} for _ in range(B)])
         if group.key.access == "pre":
-            return self._prefilter_group(group, fs)
-        return self._masked_group(group, fs)
+            return self._prefilter_group(group, fs, sq)
+        return self._masked_group(group, fs, sq)
 
     def _gathered_scores(self, col: DeviceColumn, qmat: torch.Tensor,
                          phys: np.ndarray) -> np.ndarray:
@@ -609,7 +732,8 @@ class BatchEngine:
         sub = col.data[torch.as_tensor(phys.astype(np.int64), device=self.device)]
         return self._batched_scores(qmat, sub)
 
-    def _prefilter_group(self, group: PlanGroup, fs: _FilterState):
+    def _prefilter_group(self, group: PlanGroup, fs: _FilterState,
+                         sq: dict | None = None):
         """Pre-filter access path: gather exactly the matching LIVE rows
         (base side + delta side) and score only those — cost
         dim(q)·|match|, no index involved. Exact by construction: the
@@ -621,7 +745,7 @@ class BatchEngine:
         eks_maps: list[dict] = [{} for _ in range(B)]
         vid = group.key.vid
         col = self.cstore.device(vid)
-        qmat = self._qmat(col, items)
+        qmat = self._qmat(col, items, sq=sq, slot=-1)
         mv = self._mv()
         parts_s: list[np.ndarray] = []
         parts_ids: list[np.ndarray] = []
@@ -658,7 +782,8 @@ class BatchEngine:
             ndists[i] = m
         return out_ids, costs, ndists, eks_maps
 
-    def _masked_group(self, group: PlanGroup, fs: _FilterState):
+    def _masked_group(self, group: PlanGroup, fs: _FilterState,
+                      sq: dict | None = None):
         """Masked / post-filter access paths. Flat scans (including the
         no-spec fallback) push the keep bitmap into the kernel row mask
         (keep ∧ ¬dead in-register), so they are exact at any depth ≥ k —
@@ -676,7 +801,7 @@ class BatchEngine:
 
         if not specs:  # keep-masked flat fallback scan
             col = self.cstore.device(group.key.vid)
-            qmat = self._qmat(col, items)
+            qmat = self._qmat(col, items, sq=sq, slot=-1)
             if mv is None:
                 s, ids = self._filtered_flat_scan(
                     col, qmat, min(group.max_k, col.n_rows), fs)
@@ -713,10 +838,10 @@ class BatchEngine:
             delta_merged = False
             if kind == "ivf":
                 self._ivf_scan(group, spec, j, cand, costs, ndists,
-                               mv=mv, scored=scored, fstate=fs)
+                               mv=mv, scored=scored, sq=sq, fstate=fs)
             elif kind == "flat":
                 col = self.cstore.device(spec.vid)
-                qmat = self._qmat(col, items, spec.vid)
+                qmat = self._qmat(col, items, spec.vid, sq=sq, slot=j)
                 if mv is None:
                     s, ids = self._filtered_flat_scan(
                         col, qmat, min(bucket, col.n_rows), fs)
@@ -760,7 +885,7 @@ class BatchEngine:
             out_ids = [cand[i][0][: items[i].query.k] for i in range(B)]
             return out_ids, costs, ndists, eks_maps
 
-        out_ids = self._rerank(group, cand, mv=mv)
+        out_ids = self._rerank(group, cand, mv=mv, sq=sq)
         for i, it in enumerate(items):
             total_ek = int(sum(it.eks))
             costs[i] += float(it.query.dim() * total_ek)
@@ -930,7 +1055,8 @@ class BatchEngine:
         return ids[order].astype(np.int64)
 
     def _ivf_scan(self, group: PlanGroup, spec, j: int, cand, costs, ndists,
-                  mv=None, scored=None, fstate: _FilterState | None = None):
+                  mv=None, scored=None, sq: dict | None = None,
+                  fstate: _FilterState | None = None):
         """Batched IVF probe: one centroid-scoring dispatch for the whole
         group, then one gathered-row scoring pass over the padded probe
         union. Per-query nprobe / top-ek use each query's ACTUAL ek so the
@@ -942,7 +1068,7 @@ class BatchEngine:
         idx = self.store.get(spec)
         items = group.items
         col = self.cstore.device(spec.vid)
-        qmat = self._qmat(col, items, spec.vid)
+        qmat = self._qmat(col, items, spec.vid, sq=sq, slot=j)
         cent = np.asarray(idx.centroids, dtype=np.float32)
         if col.padded_dim != cent.shape[1]:
             cent = np.pad(cent, ((0, 0), (0, col.padded_dim - cent.shape[1])))
@@ -995,7 +1121,8 @@ class BatchEngine:
             else:
                 cand[i][j] = rows[sel]
 
-    def _rerank(self, group: PlanGroup, cand, mv=None) -> list[np.ndarray]:
+    def _rerank(self, group: PlanGroup, cand, mv=None,
+                sq: dict | None = None) -> list[np.ndarray]:
         """Full-score rerank over each query's candidate union, batched as
         ONE distance-kernel dispatch over the group-wide union; per-query
         selection slices its own candidates (sorted ids + stable ordering —
@@ -1014,7 +1141,7 @@ class BatchEngine:
             return [np.empty(0, np.int64) for _ in items]
         t_r0 = time.perf_counter() if self.obs.enabled else 0.0
         gunion = np.unique(np.concatenate(nonempty))
-        qmat = self._qmat(col, items)
+        qmat = self._qmat(col, items, sq=sq, slot="rerank")
         if mv is None:
             scores = self._gathered_scores(col, qmat, gunion)
         else:

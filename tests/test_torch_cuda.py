@@ -204,3 +204,136 @@ def test_vectorized_dp_on_card_equals_cpu(cuda_device):
     ccost, ceks = dp_solve(req, *args)
     assert torch.allclose(cost.cpu(), ccost, rtol=1e-6)
     assert torch.equal(eks.cpu(), ceks)
+
+
+@pytest.mark.cuda
+def test_cache_probe_scans_a_resident_matrix_in_place(cuda_device, monkeypatch):
+    """The probe takes the cache's resident float32 matrix as it is: the
+    scan receives that very tensor (no host round trip, no copy), and the
+    result equals the numpy call's, with or without the kept norms."""
+    import numpy as np
+    from repro_torch.kernels.distance.ref import squared_norms
+    from repro_torch.serve import engine
+    rng = np.random.default_rng(6)
+    mat = rng.standard_normal((256, 384)).astype(np.float32)
+    q = rng.standard_normal((16, 384)).astype(np.float32)
+    q[:4] = mat[[5, 50, 150, 199]]
+    ref = engine.cache_probe_scan(q, mat, 200, device=cuda_device)
+    dev = torch.as_tensor(mat, device=cuda_device)
+    seen = []
+    scan = engine.streaming_fused_scan
+
+    def spy(qt, db, **kw):
+        seen.append((db.data_ptr(), kw.get("db_sq")))
+        return scan(qt, db, **kw)
+    monkeypatch.setattr(engine, "streaming_fused_scan", spy)
+    for mat_sq in (None, squared_norms(dev)):
+        got = engine.cache_probe_scan(q, dev, 200, device=cuda_device, mat_sq=mat_sq)
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_array_equal(got[0], ref[0])
+    assert [p for p, _ in seen] == [dev.data_ptr()] * 2 and seen[1][1] is not None
+    np.testing.assert_array_equal(ref[1][:4, 0], [5, 50, 150, 199])
+
+
+def _staging_fixture(dev):
+    import numpy as np
+    from repro_torch.core.types import IndexSpec, QueryPlan
+    from repro_torch.data.vectors import make_database, make_queries
+    from repro_torch.index.registry import IndexStore
+    from repro_torch.serve.engine import BatchEngine
+    db = make_database(3000, [("a", 48), ("b", 64)], seed=0)
+    engine = BatchEngine(db, store=IndexStore(db, seed=0, device=dev))
+    rng = np.random.default_rng(2)
+    pairs = []
+    for i, q in enumerate(make_queries(db, [(0, 1), (0,), (1,), (0, 1)] * 4, k=10,
+                                       seed=3)):
+        q.qid = 100 + i
+        kind = ("ivf", "flat")[i % 2]
+        if i % 3 == 2:
+            plan = QueryPlan(q.qid, [], [], 1.0, 1.0)
+        elif len(q.vid) > 1 and i % 3 == 1:
+            plan = QueryPlan(q.qid, [IndexSpec((c,), kind) for c in q.vid],
+                             [int(rng.integers(20, 60)) for _ in q.vid], 1.0, 1.0)
+        else:
+            plan = QueryPlan(q.qid, [IndexSpec(q.vid, kind)], [40], 1.0, 1.0)
+        pairs.append((q, plan))
+    return engine, pairs
+
+
+@pytest.mark.cuda
+def test_staged_batch_on_card_equals_unstaged(cuda_device):
+    """Staging on the card: pinned host buffers, copies on the engine's
+    side stream behind an event, the executing thread's stream waits on
+    it; the ids equal the unstaged call's, also when a worker thread
+    executes."""
+    import threading
+
+    import numpy as np
+    engine, pairs = _staging_fixture(cuda_device)
+    ref = engine.search_batch(pairs)
+    staged = engine.stage_batch(pairs)
+    assert isinstance(staged.ready, torch.cuda.Event)
+    assert staged.pinned and all(t.is_pinned() for t in staged.pinned)
+    assert all(t.device.type == "cuda" for t in staged.qmats.values())
+    assert engine._stage_stream != torch.cuda.current_stream(cuda_device)
+    for r, a in zip(ref, engine.search_batch(pairs, staged=staged)):
+        np.testing.assert_array_equal(r, a)
+    out = []
+    staged = engine.stage_batch(pairs)
+    worker = threading.Thread(
+        target=lambda: out.append(engine.search_batch(pairs, staged=staged)))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive() and out
+    for r, a in zip(ref, out[0]):
+        np.testing.assert_array_equal(r, a)
+
+
+@pytest.mark.cuda
+def test_async_flush_on_a_real_pool_equals_sync_on_card(cuda_device):
+    import numpy as np
+    from repro_torch.async_ import WorkerPool
+    from repro_torch.online.scheduler import MicroBatcher
+    engine, pairs = _staging_fixture(cuda_device)
+
+    def run(executor=None, stage=False):
+        mb = MicroBatcher(
+            lambda tks, staged=None: engine.search_batch(
+                [(t.query, t.plan) for t in tks], staged=staged),
+            plan_for=None, max_batch=4, executor=executor,
+            stage=(lambda tks: engine.stage_batch([(t.query, t.plan) for t in tks]))
+            if stage else None)
+        tks = [mb.submit(q, now=i * 1e-4, plan=p) for i, (q, p) in enumerate(pairs)]
+        mb.drain(1.0)
+        return [np.asarray(t.result(timeout=60)) for t in tks]
+    ref = run()
+    with WorkerPool(workers=2, name="card") as pool:
+        for stage in (True, False):
+            for r, a in zip(ref, run(pool, stage)):
+                np.testing.assert_array_equal(r, a)
+
+
+@pytest.mark.cuda
+def test_semcache_namespace_tensor_stays_on_card(cuda_device):
+    """Probes without admissions scan the same resident CUDA tensor; an
+    admission rebuilds it (and its norms) once."""
+    import numpy as np
+    from repro_torch.core.types import IndexSpec, QueryPlan
+    from repro_torch.data.vectors import make_database, make_queries
+    from repro_torch.online import SemanticCache, SemCacheConfig
+    db = make_database(500, [("a", 48), ("b", 64)], seed=0)
+    qs = make_queries(db, [(0, 1)] * 3, k=10, seed=4)
+    plan = QueryPlan(0, [IndexSpec((0, 1), "flat")], [10], 1.0, 1.0)
+    cache = SemanticCache(SemCacheConfig(epsilon=0.0, capacity=8), device=cuda_device)
+    for i, q in enumerate(qs[:2]):
+        cache.probe(q, plan)[1].admit(np.arange(10) + i)
+    (ns,) = cache._ns.values()
+    cache.probe(qs[0], plan)
+    ptr = ns.dev.data_ptr()
+    assert ns.dev.device.type == "cuda" and ns.dev_sq.device.type == "cuda"
+    for i, q in enumerate(qs[:2]):
+        np.testing.assert_array_equal(cache.probe(q, plan)[0], np.arange(10) + i)
+        assert ns.dev.data_ptr() == ptr
+    cache.probe(qs[2], plan)[1].admit(np.arange(10) + 2)
+    np.testing.assert_array_equal(cache.probe(qs[2], plan)[0], np.arange(10) + 2)
+    assert ns.dev_version == ns.version == 3

@@ -33,15 +33,18 @@ from repro.serve.compiler import compile_batch as jax_compile_batch
 from repro.serve.engine import BatchEngine as JaxEngine
 from repro_torch import convert
 from repro_torch.core.tuner import Mint, execute_workload, ground_truth_cache
-from repro_torch.core.types import Constraints, IndexSpec, QueryPlan
+from repro_torch.core.types import Constraints, IndexSpec, QueryPlan, Workload
 from repro_torch.data.vectors import make_database, make_queries, make_workload
 from repro_torch.filter import Eq, synth_attributes
 from repro_torch.index.bruteforce import batch_exact_topk
 from repro_torch.index.graph import HNSWIndex, VamanaIndex, build_knn_graph
 from repro_torch.index.ivf import IVFFlatIndex
-from repro_torch.ingest import Compactor, DeltaSegments, MutableTable, MutationView
+from repro_torch.ingest import (Compactor, DeltaSegments, IngestRuntime, MutableTable,
+                                MutationView)
 from repro_torch.index.registry import IndexStore
 from repro_torch.launch.roofline import modeled_scan_bytes
+from repro_torch.online import OnlineRuntime, SemanticCache
+from repro_torch.search.engine import execute_plan_fused
 from repro_torch.serve.columnstore import ColumnStore, padded_device_bytes
 from repro_torch.serve.compiler import compile_batch
 from repro_torch.serve.engine import BatchEngine, cache_probe_scan
@@ -271,7 +274,7 @@ def test_column_store_padding_and_bytes(dbs):
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"]
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -307,7 +310,19 @@ ENTRY_POINTS = {
         Eq("category", "cat0"), np.arange(db.n_rows)),
     "cache_probe_scan": lambda db: cache_probe_scan(db.columns[0][:2], db.columns[0], 10),
     "torch_quickstart.run": lambda db: _torch_quickstart().run(64),
+    "OnlineRuntime": lambda db: OnlineRuntime(db, Mint(db, device="cpu"),
+                                              *_one_query_workload(db)),
+    "IngestRuntime": lambda db: IngestRuntime(db, Mint(db, device="cpu"),
+                                              *_one_query_workload(db)),
+    "SemanticCache": lambda db: SemanticCache(),
+    "execute_plan_fused": lambda db: execute_plan_fused(
+        db, *_one_query_workload(db)[0].queries, QueryPlan(0, [], [], 1.0, 1.0)),
 }
+
+
+def _one_query_workload(db):
+    q = make_queries(db, [(0,)], k=3, seed=0)[0]
+    return Workload(queries=[q], probs=np.ones(1)), Constraints(**THETA)
 
 
 def _torch_quickstart():
@@ -330,10 +345,7 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name):
 
 
 def test_unported_paths_raise(dbs):
-    eng = BatchEngine(dbs[0], device="cpu")
-    for call in (lambda: eng.stage_batch([]),
-                 lambda: eng.search_batch([], staged=object()),
-                 lambda: BatchEngine(dbs[0], mesh=object(), device="cpu"),
+    for call in (lambda: BatchEngine(dbs[0], mesh=object(), device="cpu"),
                  lambda: ColumnStore(dbs[0], mesh=object(), device="cpu")):
         with pytest.raises(NotImplementedError):
             call()
