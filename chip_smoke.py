@@ -69,14 +69,34 @@ into ``build/kernels/``), then:
      (keep-masked scan, merged base + delta scan, cache probe with kept
      norms, distance at the largest pre-filter gather, the online probe and
      the online rerank) held against its plain version and timed as in 4;
-  9. the same path on the CPU and on the card at the serving-test scale
+  9. three tenants over that tuned database (phase ``tenant_path``, each
+     serving a third of the bisimple queries, 96 arrivals of a tenant-skew
+     trace with t0 the noisy neighbour and a third exact re-arrivals, 1%
+     inserts and 1% deletes on t2): a ``MultiTenantRuntime`` at one
+     micro-batch every 10 ms, ungoverned, then under a ``MemoryGovernor``
+     budget of 2/3 of its peak with t0's quota half of its bytes (DRR and
+     FIFO: the queue backs up, the two flush different batches and DRR
+     serves t1 and t2 sooner), and each tenant
+     alone: equal ids in all four, evictions by quota and by budget of
+     columns, delta segments and semantic-cache namespaces, every re-arrival
+     a cache hit, t2's flat ids equal to the live oracle, and an explicit
+     spill that lowers ``torch.cuda.memory_allocated`` by the column's padded
+     bytes; then the auto-tuner (phase ``autotune_path``): its steady, churn
+     and tenant-skew replay scenarios at 100,000 rows and the
+     paper's sift1m and glove200 widths, 4 trials and the defaults at two
+     fidelities on the card, the best trial's replay on the card equal to
+     its trial (fingerprint, snapshot, objectives) and on the CPU equal in
+     device bytes, dispatches a flush and fingerprint; the scan at the
+     replays' largest dispatch held against its plain version and timed as
+     in 4;
+  10. the same path on the CPU and on the card at the serving-test scale
      (2,500 rows): configuration, plans, numDist, costs and ids must agree,
      and a StepExecutor-driven async online run of 48 arrivals gives equal
      ids, flush, plan-cache and semantic-cache stats; then the torch
      quickstart (``examples/torch_quickstart.py``) over
      ``hnsw`` at 100,000 rows (phase ``graph_path``; MINT's recall >=
      theta) and its plans over ``diskann``;
-  10. the model substrate's serving path at Gemma-2-27B's full width and
+  11. the model substrate's serving path at Gemma-2-27B's full width and
      depth (46 layers, d_model 4608, 32 / 16 heads of 128, d_ff 36864,
      vocab 256000; 27.2e9 random bf16 parameters from a seed), after the
      MINT phases' tensors are released: a prefill of 2 prompts x 8192
@@ -86,13 +106,13 @@ into ``build/kernels/``), then:
      Attention runs in the flash kernel, whose launches are zeroed before
      and read after. The q / k / v of the first local and first global
      layer's prefill and of one decode step are noted;
-  11. the flash kernel against its plain version at those noted calls, in
+  12. the flash kernel against its plain version at those noted calls, in
      bf16 and again in float32 on the same inputs, and timed beside the
      plain version, the library call of the same function (flex_attention
      with a softcap score_mod and a causal + window block mask, compiled),
      an SDPA call that does less work (no softcap), and the bound at the
      bf16 tensor-core rate;
-  12. the same model path on the CPU and on the card at
+  13. the same model path on the CPU and on the card at
      ``gemma2-27b.reduced()``: logits within the same tolerance, the same
      top-1 tokens.
 
@@ -1385,6 +1405,506 @@ def phase_online_kernel_times(online: dict, dev, peaks) -> list[dict]:
     return rows
 
 
+# ---- multi-tenant serving under the device-memory governor ---------------------------
+
+TENANT_BUDGET_S = 150.0  # the phase's share of the script's time limit
+TENANT_ARRIVALS = 96  # the tenant trace's arrivals: 2/3 fresh, 1/3 exact re-arrivals
+# the runtimes flush one micro-batch a service tick (1,600 queries a second at
+# 16 a batch), below the rate inside t0's burst, so the queue backs up past one
+# batch and the flush order (DRR or FIFO) decides who waits
+TENANT_SERVICE_S = 0.010
+TENANTS = ("t0", "t1", "t2")  # t0 is the noisy neighbour; t2 takes the churn
+
+
+def key_kind(vid) -> str:
+    """The kind of a governor key: a column, a delta segment or a
+    semantic-cache namespace."""
+    return vid[0] if vid and vid[0] in ("delta", "semcache") else "column"
+
+
+def tenant_trace(db, wls, n: int, seed: int = 21):
+    """``tenant_skew_trace`` over the tenants' workloads: n - n // 3 fresh
+    arrivals at 1,000 a second, t0 six times as busy inside its window, then
+    n // 3 exact re-arrivals of the earliest fresh ones (same tenant, new
+    qids) 50 ms after the last fresh arrival, when every one has flushed
+    (five service ticks)."""
+    from dataclasses import replace
+    from repro_torch.online import TimedQuery, tenant_skew_trace
+    n_rep = n // 3
+    fresh = tenant_skew_trace(db, wls, n=n - n_rep, qps=1000.0, noisy="t0", noisy_mult=6.0,
+                              seed=seed, qid_start=700_000)
+    t0 = fresh[-1].t + 0.05
+    reps = [TimedQuery(t=t0 + i * 1e-3, query=replace(tq.query, qid=800_000 + i),
+                       tenant=tq.tenant) for i, tq in enumerate(fresh[:n_rep])]
+    return fresh + reps, n_rep
+
+
+def serve_at_capacity(mt, trace, backlog: list):
+    """Replay a tenant trace in trace time at one micro-batch a service tick
+    (the runtime built with ``auto_flush=False``; one poll every
+    ``TENANT_SERVICE_S``), then tick until the queue is empty. Notes the
+    pending count before each tick in ``backlog``."""
+    tickets, t_next = [], trace[0].t
+
+    def tick():
+        nonlocal t_next
+        backlog.append(len(mt.batcher))
+        mt.tick(t_next)
+        t_next += TENANT_SERVICE_S
+    for tq in trace:
+        while t_next <= tq.t:
+            tick()
+        tickets.append(mt.submit(tq.tenant, tq.query, tq.t))
+    while len(mt.batcher):
+        tick()
+    return tickets
+
+
+class GovernorWatch:
+    """Notes what a multi-tenant runtime's governor and stores do, without
+    changing it: admissions by key kind, evictions by scope (the tenant's
+    quota or the global budget) and key kind, uploads of columns, delta
+    segments and semantic-cache namespaces (an upload of what was resident
+    before is a re-upload, timed to the end of its copy), and each flush's
+    tickets (tenant, qid) in the order the scheduler chose them."""
+
+    def __init__(self, mt):
+        from repro_torch.core.types import norm_vid
+        self.acquired, self.evicted, self.flush_s, self.orders = [], [], [], []
+        self.batches = {t: 0 for t in mt.tenants()}
+        self.uploads = {k: 0 for k in ("column", "delta", "semcache")}
+        self.reuploads = dict(self.uploads)
+        self.reupload_s = {k: 0.0 for k in self.uploads}
+        gov, scope = mt.governor, {}
+        acquire, evict_until, evict = gov.acquire, gov._evict_until, gov._evict
+
+        def w_acquire(tenant, vid, nbytes):
+            scope.update(calls=0, quota=gov.quota(tenant) is not None)
+            self.acquired.append((tenant, key_kind(vid)))
+            return acquire(tenant, vid, nbytes)
+
+        def w_evict_until(fits, victims):  # the quota's pass comes first
+            scope["calls"] += 1
+            scope["now"] = "quota" if scope["quota"] and scope["calls"] == 1 else "budget"
+            return evict_until(fits, victims)
+
+        def w_evict(tenant, vid):
+            self.evicted.append((scope.get("now"), key_kind(vid), tenant))
+            return evict(tenant, vid)
+        gov.acquire, gov._evict_until, gov._evict = w_acquire, w_evict_until, w_evict
+        for t in mt.tenants():
+            st = mt.state(t)
+            cs = st.cstore
+            self._watch(cs, "device", "column", norm_vid,
+                        lambda vid, cs=cs: norm_vid(vid) in cs._device)
+            if st.view is not None:
+                seg, table = st.view.segments, st.view.table
+                self._watch(seg, "column", "delta", lambda vid: (norm_vid(vid), table.version),
+                            lambda vid: seg._cache.get(norm_vid(vid), (None,))[0]
+                            == table.version or table.n_delta == 0)
+            if t in mt.semcaches:
+                self._watch(mt.semcaches[t], "_device", "semcache",
+                            lambda ns: (ns.ns_id, ns.version),
+                            lambda ns: ns.dev is not None and ns.dev_version == ns.version)
+        execute = mt.batcher.execute
+
+        def w_execute(tickets, staged=None):
+            for t in {tk.tenant for tk in tickets}:
+                self.batches[t] += 1
+            self.orders.append([(tk.tenant, tk.query.qid) for tk in tickets])
+            t0 = time.perf_counter()
+            out = execute(tickets, staged)
+            torch.cuda.synchronize()
+            self.flush_s.append(time.perf_counter() - t0)
+            return out
+        mt.batcher.execute = w_execute
+
+    def _watch(self, obj, name, kind, key_of, resident):
+        fn, seen = getattr(obj, name), set()
+
+        def wrapped(arg):
+            if resident(arg):
+                return fn(arg)
+            key = key_of(arg)
+            t0 = time.perf_counter()
+            out = fn(arg)
+            torch.cuda.synchronize()
+            self.uploads[kind] += 1
+            if key in seen:
+                self.reuploads[kind] += 1
+                self.reupload_s[kind] += time.perf_counter() - t0
+            seen.add(key)
+            return out
+        setattr(obj, name, wrapped)
+
+    def eviction_counts(self) -> dict:
+        out: dict = {}
+        for scope, kind, _ in self.evicted:
+            out.setdefault(scope, {}).setdefault(kind, 0)
+            out[scope][kind] += 1
+        return out
+
+
+def pctl(xs, q) -> float | None:
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def phase_tenant_path(main: dict, dev, arrivals: int) -> dict:
+    """Three tenants over the main path's tuned 1,000,000-row database and
+    its tuned result (no re-tune), each serving a third of the bisimple
+    queries, with 1% inserts and 1% deletes on t2: ungoverned (a), governed
+    under 2/3 of (a)'s peak with t0's quota half of its bytes, fair (b) and
+    FIFO (c), each served at one micro-batch a service tick, and each tenant
+    alone (d). Ids must be equal across all four; (b) and (c) must flush
+    different batches out of the backlog, and DRR must serve t1 and t2
+    sooner than FIFO does."""
+    from dataclasses import replace
+    from repro_torch.core.types import QueryPlan, Workload
+    from repro_torch.data.vectors import PAPER_COLUMNS, make_database
+    from repro_torch.ingest import (CompactionPolicy, DeleteBatch, IngestConfig,
+                                    IngestRuntime, InsertBatch)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.online import OnlineRuntime, RuntimeConfig, TimedQuery
+    from repro_torch.tenancy import MultiTenantRuntime, Tenant
+    t_phase = time.perf_counter()
+    db, wl, r = main["db"], main["workload"], main["path"]
+    cons, tuned = r["constraints"], r["result"]
+    mint = replace(r["tuner"], attributes=None, _selest=None)
+    if arrivals != TENANT_ARRIVALS:
+        emit("scale_cut", tenant_arrivals=arrivals, tenant_arrivals_full=TENANT_ARRIVALS)
+    rss0 = host_rss_gib()
+    qs = sorted(wl.queries, key=lambda q: q.qid)
+    share = len(qs) // len(TENANTS)
+    wls = {t: Workload(queries=qs[i * share:(i + 1) * share], probs=np.ones(share))
+           for i, t in enumerate(TENANTS)}
+    trace, n_rep = tenant_trace(db, wls, arrivals)
+    fresh = make_database(CHURN_ROWS, PAPER_COLUMNS, seed=77)
+    deletes = np.random.default_rng(78).choice(db.n_rows, size=CHURN_ROWS, replace=False)
+    cfg = dict(max_batch=16, max_delay_ms=5.0, cooldown_s=1e9, drift_threshold=2.0,
+               semcache=True, semcache_epsilon=0.0)
+    steps, runs = {}, {}
+
+    def run(label, budget, quota_t0=None, fair=True):
+        t0 = time.perf_counter()
+        mt = MultiTenantRuntime(
+            [Tenant(t, db, mint, wls[t], cons, result=tuned,
+                    quota_bytes=quota_t0 if t == "t0" else None) for t in TENANTS],
+            budget, config=RuntimeConfig(**cfg), fair=fair, auto_flush=False, device=dev)
+        mt.enable_ingest("t2")
+        mt.mutate("t2", InsertBatch(fresh.columns))
+        mt.mutate("t2", DeleteBatch(deletes))
+        for t in TENANTS:  # each tenant's IVF indexes, built before the trace
+            for spec in sorted({s for q in wls[t].queries for s in tuned.plans[q.qid].indexes},
+                               key=lambda s: s.name):
+                mt.state(t).store.get(spec)
+        watch = GovernorWatch(mt)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        backlog = []
+        tickets = serve_at_capacity(mt, trace, backlog)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+        gov = mt.governor.stats()
+        waits = {}
+        for t in TENANTS:
+            mine = [tk for tk in tickets if tk.tenant == t]
+            wall_ms, trace_ms = [tk.wall_wait_ms for tk in mine], [tk.wait_ms for tk in mine]
+            waits[t] = dict(p50_wall_ms=pctl(wall_ms, 50), p99_wall_ms=pctl(wall_ms, 99),
+                            p50_trace_ms=pctl(trace_ms, 50), p99_trace_ms=pctl(trace_ms, 99),
+                            tickets=len(mine), batches=watch.batches[t])
+        hits = [i for i, tk in enumerate(tickets) if tk.cache_hit]
+        out = dict(mt=mt, watch=watch, ids=[np.asarray(tk.ids) for tk in tickets], hits=hits,
+                   orders=watch.orders, summary=dict(
+                       wall_s=wall, setup_s=setup_s, budget_bytes=budget, fair=fair,
+                       quota_t0=quota_t0, governor=gov, evictions=watch.eviction_counts(),
+                       acquired=sorted(set(watch.acquired)), uploads=watch.uploads,
+                       reuploads=watch.reuploads, reupload_s=watch.reupload_s,
+                       flushes=len(watch.flush_s), backlog_max=max(backlog),
+                       flush_p50_s=pctl(watch.flush_s, 50),
+                       flush_p99_s=pctl(watch.flush_s, 99),
+                       max_memory_allocated_bytes=torch.cuda.max_memory_allocated() - alloc0,
+                       peak_bytes=gov["peak_bytes"], launches=launches, tenants=waits,
+                       cache_hits=len(hits)))
+        runs[label] = out
+        emit("tenant_step", step=label, **out["summary"])
+        return out
+
+    def done(label):
+        runs[label]["mt"].close()
+        runs[label].pop("mt")
+        runs[label].pop("watch")
+        gc.collect()
+        steps[label] = time.perf_counter() - t_step
+
+    # (a) ungoverned: the budget above anything
+    t_step = time.perf_counter()
+    a = run("ungoverned", 1 << 50)
+    P = a["summary"]["peak_bytes"]
+    t0_bytes = a["summary"]["governor"]["tenants"]["t0"]["bytes"]
+    check(a["summary"]["governor"]["evictions"] == 0, "the ungoverned run evicted")
+    done("ungoverned")
+    rep = list(range(len(trace) - n_rep, len(trace)))
+    check(a["hits"] == rep, f"ungoverned hits at {a['hits'][:8]}..., expected the re-arrivals")
+
+    # (b) governed, fair: 2/3 of (a)'s peak, t0's quota half of its bytes in (a)
+    t_step = time.perf_counter()
+    budget, quota = int(2 * P / 3), t0_bytes // 2
+    b = run("governed_fair", budget, quota_t0=quota)
+    mt, watch = b["mt"], b["watch"]
+    same_ids(b["ids"], a["ids"], "governed fair vs ungoverned")
+    ev = b["summary"]["evictions"]
+    check({"quota", "budget"} <= set(ev), f"evictions by scope: {ev}")
+    gov = b["summary"]["governor"]
+    check(gov["peak_bytes"] <= budget or gov["overcommits"] > 0,
+          f"peak {gov['peak_bytes']} over the budget {budget} with no overcommit")
+    check({k for _, k in b["summary"]["acquired"]} == {"column", "delta", "semcache"},
+          f"governor keys: {b['summary']['acquired']}")
+    check(b["hits"] == rep, f"governed hits at {b['hits'][:8]}..., expected the re-arrivals")
+    check(b["summary"]["launches"]["streaming_fused_scan"] > 0
+          and b["summary"]["launches"]["batched_scores"] > 0,
+          f"the tenant path's launches: {b['summary']['launches']}")
+    # an explicit spill of the largest resident column, no flush in flight
+    nbytes, tenant, vid = max((n, t, v) for t, v, n in mt.governor.resident()
+                              if key_kind(v) == "column")
+    cs = mt.state(tenant).cstore
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    check(cs.evict_device(vid), f"{tenant} {vid} was not resident")
+    torch.cuda.synchronize()
+    drop = before - torch.cuda.memory_allocated()
+    check(drop >= cs.device_bytes(vid),
+          f"evicting {tenant} {vid} freed {drop} bytes of {cs.device_bytes(vid)}")
+    spill = dict(tenant=tenant, vid=list(vid), padded_bytes=cs.device_bytes(vid),
+                 memory_allocated_drop=drop, governor_bytes=nbytes)
+    # t2's flat results after the churn equal the live oracle
+    eng = mt.state("t2").engine
+    flat = [(q, QueryPlan(q.qid, [], [], 0.0, 1.0)) for q in wls["t2"].queries]
+    swaps = sum(same_topk(eng, q, got, eng.ground_truth(q), f"t2 q{q.qid} after the churn")
+                for (q, _), got in zip(flat, eng.search_batch(flat)))
+    table = mt.state("t2").table.stats()
+    del mt, watch, eng, cs
+    done("governed_fair")
+
+    # (c) governed, FIFO
+    t_step = time.perf_counter()
+    c = run("governed_fifo", budget, quota_t0=quota, fair=False)
+    same_ids(c["ids"], a["ids"], "governed FIFO vs ungoverned")
+    check(c["summary"]["backlog_max"] > cfg["max_batch"],
+          f"the queue never backed up past one batch: {c['summary']['backlog_max']}")
+    check(b["orders"] != c["orders"], "DRR and FIFO flushed the same batches")
+    fairness = {t: dict(drr_p99_trace_ms=b["summary"]["tenants"][t]["p99_trace_ms"],
+                        fifo_p99_trace_ms=c["summary"]["tenants"][t]["p99_trace_ms"])
+                for t in TENANTS}
+    check(all(fairness[t]["drr_p99_trace_ms"] < fairness[t]["fifo_p99_trace_ms"]
+              for t in ("t1", "t2")), f"DRR did not serve t1 and t2 sooner: {fairness}")
+    gov = c["summary"]["governor"]
+    check(gov["peak_bytes"] <= budget or gov["overcommits"] > 0,
+          f"FIFO peak {gov['peak_bytes']} over the budget {budget} with no overcommit")
+    check(c["hits"] == rep, f"FIFO hits at {c['hits'][:8]}..., expected the re-arrivals")
+    done("governed_fifo")
+
+    # (d) each tenant alone, over its own slice of the trace
+    t_step = time.perf_counter()
+    want = {tq.query.qid: ids for tq, ids in zip(trace, a["ids"])}
+    alone = {}
+    for t in TENANTS:
+        sub = [TimedQuery(t=tq.t, query=tq.query) for tq in trace if tq.tenant == t]
+        kw = dict(result=tuned, config=RuntimeConfig(**cfg), device=dev)
+        if t == "t2":
+            rt = IngestRuntime(db, mint, wls[t], cons, ingest=IngestConfig(
+                policy=CompactionPolicy(max_delta_fraction=None, max_dead_fraction=None),
+                auto_maintain=False), **kw)
+            rt.mutate(InsertBatch(fresh.columns))
+            rt.mutate(DeleteBatch(deletes))
+        else:
+            rt = OnlineRuntime(db, mint, wls[t], cons, **kw)
+        t0 = time.perf_counter()
+        tks = rt.run_trace(sub)
+        torch.cuda.synchronize()
+        alone[t] = dict(wall_s=time.perf_counter() - t0, tickets=len(tks),
+                        batches=rt.stats()["batcher"]["batches"])
+        for tk in tks:
+            check(np.array_equal(np.asarray(tk.ids), want[tk.query.qid]),
+                  f"{t} q{tk.query.qid}: ids differ from its run alone")
+        rt.close()
+        del rt, tks
+        gc.collect()
+    steps["alone"] = time.perf_counter() - t_step
+
+    seconds = time.perf_counter() - t_phase
+    emit("tenant_path", rows=db.n_rows, tenants=list(TENANTS), arrivals=len(trace),
+         re_arrivals=n_rep, seconds=seconds, budget_s=TENANT_BUDGET_S, step_s=steps,
+         ungoverned_peak_bytes=P, budget_bytes=budget, quota_t0_bytes=quota,
+         runs={k: {f: v["summary"][f] for f in (
+             "wall_s", "flushes", "backlog_max", "evictions", "reuploads", "reupload_s",
+             "peak_bytes", "max_memory_allocated_bytes", "cache_hits")}
+             for k, v in runs.items()},
+         alone=alone,
+         service_s=TENANT_SERVICE_S, fairness=fairness,
+         flush_orders_differ=True,
+         ids_equal=dict(governed_fair=True, governed_fifo=True, each_alone=True),
+         explicit_spill=spill, t2_table=table, t2_flat_oracle_near_tie_swaps=swaps,
+         host_rss_gib_at_start=rss0, host_rss_gib_at_end=host_rss_gib(),
+         host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+    return dict(launches={k: v["summary"]["launches"] for k, v in runs.items()})
+
+
+# ---- the auto-tuner's replays on the card -----------------------------------------------
+
+AUTOTUNE_ROWS = 100_000  # cut from the paper's 1,000,000: each trial replays the whole
+AUTOTUNE_BUDGET_S = 120.0  # trace and scores recall against the host oracle
+AUTOTUNE_COLS = (("sift1m", 128), ("glove200", 200))  # data/vectors.py: PAPER_COLUMNS
+
+
+class ScanCalls:
+    """Notes the largest plain streaming-scan dispatch (no masks, no delta,
+    the default metric) the engines make on ``device`` while installed: its
+    queries, rows and k. What the scan computes is unchanged."""
+
+    def __init__(self, device):
+        self.device = device
+        self.largest = None
+
+    def install(self):
+        import repro_torch.serve.engine as engine
+        scan = engine.streaming_fused_scan
+
+        def noted(q, db, k, **kw):
+            if (q.device.type == self.device.type and "metric" not in kw
+                    and all(v is None for n, v in kw.items() if n != "valid_n")):
+                size = q.shape[0] * db.shape[0] * db.shape[1]
+                if self.largest is None or size > math.prod(self.largest["shape"][:3]):
+                    self.largest = dict(shape=(q.shape[0], db.shape[0], db.shape[1], k),
+                                        q=q.clone(), db=db, k=k, valid_n=kw.get("valid_n"))
+            return scan(q, db, k, **kw)
+        engine.streaming_fused_scan = noted
+
+        def undo():
+            engine.streaming_fused_scan = scan
+        return undo
+
+
+def phase_autotune_path(dev, rows: int) -> dict:
+    """The auto-tuner's three replay scenarios (steady, churn, tenant_skew;
+    flat indexes) at the paper's column widths: an ``AutoTuner`` of 4 trials
+    plus the defaults at fidelities 0.5 and 1.0 on the card, then the best
+    trial replayed on the card (the same fingerprint, snapshot and
+    objectives) and on the CPU (the same device bytes, the same dispatches
+    in every flush and the same fingerprint)."""
+    from repro_torch.autotune import (AutoTuner, ReplayScenario, TunerConfig,
+                                      clear_deployments, replay, serving_space)
+    from repro_torch.autotune.replay import deployment
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    emit("scale_cut", autotune_rows=rows, paper_rows=1_000_000,
+         why="every trial replays its trace and scores recall against the host oracle")
+    scans = ScanCalls(dev)
+    undo = scans.install()
+    reset_launch_counts()
+    out, replays = {}, 0
+    try:
+        for name in ("steady", "churn", "tenant_skew"):
+            sc = ReplayScenario(name=name, index_kind="flat", rows=rows, cols=AUTOTUNE_COLS,
+                                vids=((0,), (0, 1)), n_queries=64, k=10,
+                                min_sample_rows=2000, budget_mb=400)
+            space = serving_space(churn=sc.churn)
+            t0 = time.perf_counter()
+            deployment(sc, dev)
+            deploy_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            report = AutoTuner(sc, space=space, device=dev, config=TunerConfig(
+                n_trials=4, fidelities=(0.5, 1.0), seed=0,
+                warm_start=(space.defaults(),))).run()
+            tune_s = time.perf_counter() - t0
+            evaluated = sum(1 for t in report.trials if t.objectives)
+            check(bool(report.front), f"{name}: empty front ({report.diagnostic})")
+            best = report.best
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = replay(sc, best.params, seed=best.seed, device=dev)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            check(card.fingerprint == best.fingerprint and card.snapshot == best.snapshot
+                  and card.objectives == best.objectives,
+                  f"{name}: the best trial's replay on the card differs from its trial")
+            t0 = time.perf_counter()
+            cpu = replay(sc, best.params, seed=best.seed, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            check(cpu.objectives["device_bytes"] == card.objectives["device_bytes"],
+                  f"{name}: device bytes {card.objectives['device_bytes']} on the card, "
+                  f"{cpu.objectives['device_bytes']} on the CPU")
+            check(cpu.flush_dispatches == card.flush_dispatches,
+                  f"{name}: dispatches a flush differ between the card and the CPU")
+            # what the card computed: every ticket's recall and the cache's
+            # hits are in the deterministic snapshot the fingerprint hashes
+            check(cpu.fingerprint == card.fingerprint and cpu.snapshot == card.snapshot,
+                  f"{name}: fingerprint {card.fingerprint} on the card, "
+                  f"{cpu.fingerprint} on the CPU")
+            svc = card.snapshot["replay_service_ms"]
+            replays += evaluated + 1
+            out[name] = dict(
+                trials=len(report.trials), evaluated=evaluated, front=len(report.front),
+                best_trial=best.trial_id, best_params=best.params, deploy_s=deploy_s,
+                tune_s=tune_s, replay_card_s=card_s, replay_cpu_s=cpu_s,
+                flushes=card.n_flushes, queries=card.n_queries,
+                wall_ms_per_flush=card_s / max(card.n_flushes, 1) * 1e3,
+                modeled_mean_service_ms=svc["total"] / max(svc["count"], 1),
+                objectives_card=card.objectives, objectives_cpu=cpu.objectives,
+                fingerprint_card=card.fingerprint, fingerprint_cpu=cpu.fingerprint,
+                events_card=card.events, events_cpu=cpu.events,
+                dispatches=sum(card.flush_dispatches))
+            emit("autotune_step", scenario=name, **out[name])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in launch_counts().items() if n in MINT_KERNELS}
+    check(launches["streaming_fused_scan"] > 0, "the replays launched no scan")
+    check(scans.largest is not None, "no plain scan dispatch was noted")
+    clear_deployments()
+    gc.collect()
+    emit("autotune_path", rows=rows, columns=[list(c) for c in AUTOTUNE_COLS],
+         seconds=time.perf_counter() - t_phase, budget_s=AUTOTUNE_BUDGET_S,
+         replays_on_card=replays, launches=launches,
+         largest_scan=list(scans.largest["shape"]), scenarios=out)
+    return dict(launches=launches, scan=scans.largest)
+
+
+def phase_autotune_kernel_time(at: dict, peaks) -> list[dict]:
+    """The scan at the replays' largest plain dispatch, held against its
+    plain version and the two-pass scan and timed beside ``matmul`` +
+    ``topk`` and its bound. Launches are the autotune phase's."""
+    from repro_torch.kernels.parity import check_topk, combined_plain_scores, two_pass_scan
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    rec = at["scan"]
+    q, x, k, n = rec["q"], rec["db"], rec["k"], rec["valid_n"]
+    n = x.shape[0] if n is None else n
+    (B, d), kw = q.shape, dict(valid_n=n)
+    vals, ids = streaming_fused_scan(q, x, k=k, **kw)
+    rvals, rids = streaming_fused_scan_ref(q, x, k, **kw)
+    err, swaps = check_topk(vals, ids, rvals, rids, combined_plain_scores(q, x, "dot", kw),
+                            d, "autotune scan")
+    v2, i2 = two_pass_scan(q, x, k, "dot", kw)
+    check(torch.equal(v2, vals) and torch.equal(i2, ids),
+          "two-pass scan differs from the streaming scan (autotune)")
+    ms = cuda_ms(lambda: streaming_fused_scan(q, x, k=k, **kw))
+    plain = cuda_ms(lambda: streaming_fused_scan_ref(q, x, k, **kw))
+    lib = cuda_ms(lambda: torch.topk(q @ x[:n].T, k, dim=1))
+    nbytes, flops = 4 * (B * d + n * d) + 8 * B * k, 2.0 * B * n * d
+    return [table_row(
+        "streaming_fused_scan[autotune_replay]", "cuda", "src/repro_torch/csrc/streaming.cu",
+        "src/repro/kernels/streaming/kernel.py:44", at["launches"]["streaming_fused_scan"],
+        err, ms, plain, lib, bound(nbytes, flops, peaks), use="autotune_replay",
+        shape=[B, n, d, k], near_tie_swaps=swaps, two_pass_equal=True,
+        library="matmul + topk", achieved_gbps=nbytes / ms / 1e6,
+        achieved_tflops=flops / ms / 1e9)]
+
+
 # ---- CPU vs card -----------------------------------------------------------------------
 
 
@@ -1855,7 +2375,14 @@ def main() -> int:
         online = phase_online_path(main_path, dev, args.online_queries)
         rows += phase_slice_kernel_times(main_path, filt, mut, probe, dev, peaks)
         rows += phase_online_kernel_times(online, dev, peaks)
-        del main_path, filt, mut, probe, online  # the model needs the card's memory
+        # the online phase's runtimes and the earlier phases' noted tensors go
+        # before three tenants concatenate their columns again
+        del filt, mut, probe, online
+        gc.collect()
+        phase_tenant_path(main_path, dev, TENANT_ARRIVALS)
+        at = phase_autotune_path(dev, AUTOTUNE_ROWS)
+        rows += phase_autotune_kernel_time(at, peaks)
+        del main_path, at  # the model needs the card's memory
         phase_cpu_vs_card()
         if args.graph_rows != GRAPH_ROWS:
             emit("scale_cut", graph_rows=args.graph_rows, graph_rows_default=GRAPH_ROWS)

@@ -3,8 +3,12 @@
 ``DeltaSegments`` is the delta-side twin of ``serve.columnstore``: per-vid
 concatenated delta rows, zero-padded to the kernel block shapes and
 uploaded once per (table version, vid) to the view's torch device, so
-repeated scans skip the transfer. The tenancy ``MemoryGovernor`` is not
-ported: ``governor`` must stay None.
+repeated scans skip the transfer. Segments answer to the tenancy
+``MemoryGovernor`` when one is attached — every upload is charged its PADDED
+footprint under the owning tenant (key ``("delta",) + vid``, so delta bytes
+show up in the same per-tenant accounting as resident base columns) and
+released when the segment is invalidated by a new table version, evicted,
+or dropped.
 
 ``MutationView`` is what ``BatchEngine`` reads at execution time:
 
@@ -29,6 +33,9 @@ from repro_torch.ingest.table import MutableTable
 from repro_torch.kernels.common import resolve_device
 from repro_torch.serve.columnstore import DeviceColumn, _round_up
 
+DELTA_NS = "delta"  # governor key namespace: ("delta",) + vid
+
+
 @dataclass
 class DeltaColumn:
     """One vid's delta rows on device, plus identity and liveness."""
@@ -47,13 +54,6 @@ class DeltaColumn:
         return int(self.alive.sum())
 
 
-def _no_governor(governor) -> None:
-    if governor is not None:
-        raise NotImplementedError(
-            "the tenancy MemoryGovernor is not ported yet (ROADMAP.md, "
-            "Queue 1); delta segments take governor=None")
-
-
 class DeltaSegments:
     """Version-keyed device cache of per-vid delta concats on ``device``
     (None: the CUDA card)."""
@@ -61,30 +61,44 @@ class DeltaSegments:
     def __init__(self, table: MutableTable, block_rows: int = 128,
                  block_dim: int = 128, governor=None,
                  tenant: TenantId = DEFAULT_TENANT, device=None):
-        _no_governor(governor)
         self.device = resolve_device(device)
         self.table = table
         self.block_rows = block_rows
         self.block_dim = block_dim
+        self.governor = governor
         self.tenant = tenant
         self._cache: dict[Vid, tuple[int, DeltaColumn]] = {}
+
+    def _gov_key(self, vid: Vid) -> tuple:
+        return (DELTA_NS,) + vid
+
+    def _release(self, vid: Vid) -> None:
+        if self.governor is not None:
+            self.governor.release(self.tenant, self._gov_key(vid))
 
     def column(self, vid: Vid) -> DeltaColumn | None:
         """Device delta column for ``vid`` at the CURRENT table version;
         None when the table has no delta rows. Stale versions are dropped
-        before re-uploading."""
+        (and their governor charge released) before re-uploading."""
         vid = norm_vid(vid)
         version = self.table.version
         hit = self._cache.get(vid)
         if hit is not None and hit[0] == version:
+            if self.governor is not None:
+                self.governor.touch(self.tenant, self._gov_key(vid))
             return hit[1]
-        self._cache.pop(vid, None)
+        if hit is not None:
+            del self._cache[vid]
+            self._release(vid)
         if self.table.n_delta == 0:
             return None
         mat = self.table.delta_concat(vid)
         n, d = mat.shape
         np_pad = _round_up(n, self.block_rows) - n
         nd_pad = _round_up(d, self.block_dim) - d
+        if self.governor is not None:
+            self.governor.acquire(self.tenant, self._gov_key(vid),
+                                  (n + np_pad) * (d + nd_pad) * 4)
         if np_pad or nd_pad:
             mat = np.pad(mat, ((0, np_pad), (0, nd_pad)))
         col = DeviceColumn(vid=vid, data=torch.as_tensor(
@@ -100,9 +114,20 @@ class DeltaSegments:
         self._cache[vid] = (version, dcol)
         return dcol
 
+    def evict_device(self, key: tuple) -> bool:
+        """Governor eviction callback: ``key`` is ("delta",) + vid."""
+        vid = tuple(key[1:])
+        if vid in self._cache:
+            del self._cache[vid]
+            self._release(vid)
+            return True
+        return False
+
     def drop_all(self) -> None:
         """Release every cached segment (compaction swap / shutdown)."""
-        self._cache.clear()
+        for vid in list(self._cache):
+            del self._cache[vid]
+            self._release(vid)
 
     def total_device_bytes(self) -> int:
         return sum(d.col.device_bytes for _, d in self._cache.values())

@@ -39,10 +39,12 @@ Correctness is delegated to machinery that already exists:
   float32 tensor on the cache's device, with its squared row norms beside
   it; both are rebuilt only when an admission changed the ring
   (``dev_version``), and the probe scans them in place — no host round
-  trip and no norm reduction per probe. ``evict_device`` drops the device
-  copy (the host ring stays; the next probe re-uploads bit-identically).
-  Charging that memory to a ``MemoryGovernor`` is the tenancy slice: until
-  it lands, ``governor`` must be None.
+  trip and no norm reduction per probe. With a ``MemoryGovernor`` attached
+  the matrix is charged under ``("semcache", ns_id)`` at the reference's
+  padded footprint (``_Namespace.device_bytes``); the norms beside it
+  (capacity x 4 bytes) are not charged. ``evict_device`` drops the matrix
+  and its norms together (the host ring stays; the next probe re-uploads
+  both bit-identically).
 
 Per-namespace storage is a fixed-capacity FIFO ring over (query vector,
 result ids); namespaces themselves are LRU-bounded per cache instance, and
@@ -53,6 +55,7 @@ from __future__ import annotations
 import itertools
 import threading
 from collections import OrderedDict
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -90,6 +93,7 @@ class _Namespace:
     dev: torch.Tensor | None = None     # device copy of ``queries``
     dev_sq: torch.Tensor | None = None  # squared_norms(dev), kept beside it
     dev_version: int = -1
+    charged: bool = False               # device bytes held in the governor
 
     @property
     def gvid(self) -> tuple:
@@ -130,17 +134,16 @@ class SemanticCache:
     with the namespace's resident matrix and its squared norms;
     ``generation`` supplies the tenant's current plan-cache generation.
     ``device=None`` is the CUDA card. Thread-safe: probes run under the
-    batcher lock, admissions may arrive from flush workers.
+    batcher lock, admissions may arrive from flush workers. With a governor,
+    every path that may call it takes the governor's lock before the
+    cache's, the order in which a spill (``evict_device``, called under the
+    governor's lock by another store's admission) takes them.
     """
 
     def __init__(self, config: SemCacheConfig | None = None, *,
                  scan=None, generation=None, governor=None,
                  tenant: TenantId = DEFAULT_TENANT, device=None,
                  observer=None):
-        if governor is not None:
-            raise NotImplementedError(
-                "the tenancy MemoryGovernor is not ported yet (ROADMAP.md, "
-                "Queue 1); the semantic cache takes governor=None")
         self.config = config or SemCacheConfig()
         self.obs = observer if observer is not None else NULL_OBSERVER
         if self.config.capacity < 1:
@@ -148,6 +151,7 @@ class SemanticCache:
         self.device = resolve_device(device)
         self.scan = scan if scan is not None else self._default_scan
         self._generation = generation
+        self.governor = governor
         self.tenant = tenant
         self.epoch = 0
         self.lock = threading.RLock()
@@ -184,7 +188,7 @@ class SemanticCache:
               tenant: TenantId = DEFAULT_TENANT):
         """Return ``(ids, None)`` on a hit or ``(None, token)`` on a miss."""
         qvec = np.ascontiguousarray(query.concat(), dtype=np.float32)
-        with self.lock:
+        with self._locked():
             self._sweep()
             sig = self.signature(query, plan)
             key = self._key(sig)
@@ -213,7 +217,7 @@ class SemanticCache:
         if ids is None:
             return
         arr = np.array(ids, copy=True)
-        with self.lock:
+        with self._locked():
             key = self._key(token.sig)
             ns = self._ns.get(key)
             if ns is None:
@@ -236,7 +240,7 @@ class SemanticCache:
         """Data-epoch bump: every namespace becomes dead. Called by the
         ingest paths on mutation flush (compaction/retune/swap invalidate
         via the plan-cache generation instead)."""
-        with self.lock:
+        with self._locked():
             self.epoch += 1
             self.invalidations += 1
             self._sweep()
@@ -247,7 +251,14 @@ class SemanticCache:
         """Drop everything (epoch bump + eager sweep)."""
         self.bump()
 
-    # ---- internals (caller holds ``self.lock``) ---------------------------
+    @contextmanager
+    def _locked(self):
+        """The governor's lock (when governed), then the cache's."""
+        with self.governor.lock if self.governor is not None else nullcontext():
+            with self.lock:
+                yield
+
+    # ---- internals (caller holds ``_locked()``) ---------------------------
 
     def _sweep(self) -> None:
         gen = self._generation() if self._generation is not None else 0
@@ -258,6 +269,8 @@ class SemanticCache:
     def _drop(self, key: tuple) -> None:
         ns = self._ns.pop(key)
         self._by_gvid.pop(ns.gvid, None)
+        if ns.charged and self.governor is not None:
+            self.governor.release(self.tenant, ns.gvid)
         self.dropped_namespaces += 1
 
     def _make_ns(self, key: tuple, dim: int) -> _Namespace:
@@ -275,11 +288,21 @@ class SemanticCache:
         """Resident float32 copy of the namespace's query matrix and its
         squared norms, rebuilt only after admissions and spills: a probe of
         an unchanged ring scans the same tensor again. ``torch.tensor``
-        copies, so a later admission into the host ring never aliases it."""
+        copies, so a later admission into the host ring never aliases it.
+        The matrix's padded bytes are charged on materialization."""
         if ns.dev is None or ns.dev_version != ns.version:
+            if self.governor is not None:
+                if ns.charged:
+                    self.governor.touch(self.tenant, ns.gvid)
+                else:
+                    self.governor.acquire(self.tenant, ns.gvid,
+                                          ns.device_bytes)
+                    ns.charged = True
             ns.dev = torch.tensor(ns.queries, device=self.device)
             ns.dev_sq = squared_norms(ns.dev)
             ns.dev_version = ns.version
+        elif self.governor is not None and ns.charged:
+            self.governor.touch(self.tenant, ns.gvid)
         return ns.dev
 
     def _default_scan(self, qmat, mat, valid_n, mat_sq=None):
@@ -291,12 +314,13 @@ class SemanticCache:
     def evict_device(self, vid: tuple) -> bool:
         """Governor spill callback: release the device matrix of one
         namespace (host ring retained — the next probe re-uploads)."""
-        with self.lock:
+        with self._locked():
             ns = self._by_gvid.get(tuple(vid))
             if ns is None or ns.dev is None:
                 return False
             ns.dev = ns.dev_sq = None
             ns.dev_version = -1
+            ns.charged = False
             return True
 
     # ---- reporting --------------------------------------------------------

@@ -337,3 +337,89 @@ def test_semcache_namespace_tensor_stays_on_card(cuda_device):
     cache.probe(qs[2], plan)[1].admit(np.arange(10) + 2)
     np.testing.assert_array_equal(cache.probe(qs[2], plan)[0], np.arange(10) + 2)
     assert ns.dev_version == ns.version == 3
+
+
+@pytest.mark.cuda
+def test_governed_spill_frees_card_memory_and_comes_back_bit_identical(cuda_device):
+    """A budget eviction drops the store's tensor: ``memory_allocated`` (not
+    ``memory_reserved``: the caching allocator keeps the block) falls by the
+    column's padded bytes, and the column comes back equal."""
+    from repro_torch.data.vectors import make_database
+    from repro_torch.serve.columnstore import ColumnStore
+    from repro_torch.tenancy import MemoryGovernor, TenantColumnStores
+    db = make_database(10_000, [("a", 200), ("b", 130)], seed=0)
+    col = ColumnStore(db, device="cpu").device_bytes
+    gov = MemoryGovernor(col((0,)) + col((1,)))
+    stores = TenantColumnStores(gov)
+    sa = stores.register("a", db, device=cuda_device)
+    sb = stores.register("b", db, device=cuda_device)
+    before = sa.device((0,)).data.clone()
+    sb.device((1,))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    sb.device((0,))  # over the budget: a's (0,) is the LRU victim, freed first
+    torch.cuda.synchronize()
+    assert sa.resident() == [] and gov.evictions == 1
+    assert torch.cuda.memory_allocated() - held < col((0,))
+    held = torch.cuda.memory_allocated()
+    assert sb.evict_device((0,))
+    torch.cuda.synchronize()
+    assert held - torch.cuda.memory_allocated() >= col((0,))
+    assert gov.tenant_bytes("b") == col((1,))
+    assert torch.equal(sa.device((0,)).data, before)
+
+
+@pytest.mark.cuda
+def test_spilled_semcache_namespace_frees_matrix_and_norms_on_card(cuda_device):
+    import numpy as np
+    from repro_torch.core.types import IndexSpec, QueryPlan
+    from repro_torch.data.vectors import make_database, make_queries
+    from repro_torch.online import SemanticCache, SemCacheConfig
+    from repro_torch.tenancy import MemoryGovernor
+    db = make_database(500, [("a", 300), ("b", 200)], seed=0)
+    qs = make_queries(db, [(0, 1)] * 2, k=10, seed=4)
+    plan = QueryPlan(0, [IndexSpec((0, 1), "flat")], [10], 1.0, 1.0)
+    gov = MemoryGovernor(10**9)
+    cache = SemanticCache(SemCacheConfig(capacity=4096), governor=gov, tenant="t",
+                          device=cuda_device)
+    gov.register_semcache("t", cache)
+    for i, q in enumerate(qs):
+        cache.probe(q, plan)[1].admit(np.arange(10) + i)
+    np.testing.assert_array_equal(cache.probe(qs[0], plan)[0], np.arange(10))
+    (ns,) = cache._ns.values()
+    assert gov.resident() == [("t", ns.gvid, ns.device_bytes)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gov._evict("t", ns.gvid)
+    torch.cuda.synchronize()
+    assert ns.dev is None and ns.dev_sq is None and gov.resident() == []
+    assert held - torch.cuda.memory_allocated() >= 4096 * 500 * 4 + 4096 * 4
+    for i, q in enumerate(qs):  # re-uploads both, and hits
+        np.testing.assert_array_equal(cache.probe(q, plan)[0], np.arange(10) + i)
+    assert ns.dev.device.type == "cuda" and ns.dev_sq.device.type == "cuda"
+    assert gov.resident() == [("t", ns.gvid, ns.device_bytes)]
+
+
+@pytest.mark.cuda
+def test_governed_delta_segment_is_charged_and_released_on_card(cuda_device):
+    import numpy as np
+    from repro_torch.data.vectors import make_database
+    from repro_torch.ingest import DeltaSegments, InsertBatch, MutableTable
+    from repro_torch.online import row_batch
+    from repro_torch.tenancy import MemoryGovernor
+    db = make_database(1000, [("a", 200), ("b", 100)], seed=0)
+    table = MutableTable(db)
+    gov = MemoryGovernor(10**9)
+    seg = DeltaSegments(table, governor=gov, tenant="t", device=cuda_device)
+    gov.register_delta("t", seg)
+    table.apply(InsertBatch(row_batch(db, np.random.default_rng(0), 5000)))
+    d = seg.column((0, 1))
+    assert d.col.data.device.type == "cuda"
+    assert gov.resident() == [("t", ("delta", 0, 1), d.col.device_bytes)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    del d
+    seg.drop_all()
+    torch.cuda.synchronize()
+    assert gov.resident() == [] and gov.stats()["total_bytes"] == 0
+    assert held - torch.cuda.memory_allocated() >= 5120 * 384 * 4

@@ -25,10 +25,12 @@ from repro.ingest import DeleteBatch as JDelete
 from repro.ingest import InsertBatch as JInsert
 from repro.ingest import MutableTable as JaxTable
 from repro.ingest import MutationView as JaxView
+from repro.ingest import DeltaSegments as JaxSegments
 from repro.ingest import UpsertBatch as JUpsert
 from repro.online.trace import row_batch
 from repro.serve.engine import BatchEngine as JaxEngine
 from repro.serve.engine import cache_probe_scan as jax_cache_probe_scan
+from repro.tenancy import MemoryGovernor as JaxGovernor
 from repro_torch import convert
 from repro_torch.core.types import IndexSpec, QueryPlan
 from repro_torch.data.vectors import make_database, make_queries
@@ -39,6 +41,7 @@ from repro_torch.ingest import (CompactionPolicy, Compactor, DataDriftDetector,
 from repro_torch.kernels.parity import tolerance
 from repro_torch.serve.columnstore import ColumnStore
 from repro_torch.serve.engine import BatchEngine, cache_probe_scan
+from repro_torch.tenancy import MemoryGovernor
 
 K = 10
 COLS = [("a", 24), ("b", 32)]
@@ -161,8 +164,21 @@ def test_delta_segments_versioning(dbs):
     assert seg.total_device_bytes() == 256 * 128 * 4
     seg.drop_all()
     assert seg.total_device_bytes() == 0
-    with pytest.raises(NotImplementedError, match="MemoryGovernor"):
-        DeltaSegments(t, governor=object(), device="cpu")
+    # governed, a segment charges the reference's key and padded bytes
+    govs, tables = (MemoryGovernor(10**9), JaxGovernor(10**9)), (MutableTable(dbs[0]),
+                                                                   JaxTable(dbs[1]))
+    block = row_batch(dbs[1], np.random.default_rng(7), 130)
+    segs = (DeltaSegments(tables[0], governor=govs[0], tenant="t", device="cpu"),
+            JaxSegments(tables[1], governor=govs[1], tenant="t"))
+    tables[0].apply(InsertBatch(block))
+    tables[1].apply(JInsert(block))
+    for seg, gov in zip(segs, govs):
+        seg.column((0,))
+        seg.column((0, 1))
+    assert govs[0].resident() == govs[1].resident() == [
+        ("t", ("delta", 0), 256 * 128 * 4), ("t", ("delta", 0, 1), 256 * 128 * 4)]
+    segs[0].drop_all()
+    assert govs[0].resident() == [] and govs[0].stats()["total_bytes"] == 0
 
 
 # ---- the engine over a mutated table ------------------------------------------

@@ -179,9 +179,22 @@ def test_cache_state_machine_matches_reference(name):
 
 
 def test_governor_is_refused_until_tenancy():
-    cache = PKGS["repro_torch"].SemanticCache
-    with pytest.raises(NotImplementedError, match="governor"):
-        cache(governor=object(), device="cpu")
+    """The tenancy slice has landed: a governed cache charges its namespace
+    under the reference's key and padded bytes, and releases it when the
+    namespace dies."""
+    out = {}
+    for pkg, P in PKGS.items():
+        gov = importlib.import_module(f"{pkg}.tenancy").MemoryGovernor(10**9)
+        db = P.make_database(400, COLS, seed=0)
+        cache = P.SemanticCache(governor=gov, tenant="t", **P.kw)
+        q, plan = _qp(P, db, 0, 900)
+        cache.probe(q, plan)[1].admit(np.arange(K))
+        hit = cache.probe(q, plan)[0]
+        out[pkg] = (hit.tolist(), gov.resident())
+        cache.bump()
+        assert gov.resident() == [] and gov.stats()["total_bytes"] == 0
+    assert out["repro_torch"] == out["repro"]
+    assert out["repro_torch"] == (list(range(K)), [("t", ("semcache", 0), 256 * 128 * 4)])
 
 
 # ---- the resident matrix and the repaired probe ------------------------------

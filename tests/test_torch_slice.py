@@ -43,11 +43,13 @@ from repro_torch.ingest import (Compactor, DeltaSegments, IngestRuntime, Mutable
                                 MutationView)
 from repro_torch.index.registry import IndexStore
 from repro_torch.launch.roofline import modeled_scan_bytes
+from repro_torch.autotune import AutoTuner, ReplayScenario, replay, serving_space
 from repro_torch.online import OnlineRuntime, SemanticCache
 from repro_torch.search.engine import execute_plan_fused
 from repro_torch.serve.columnstore import ColumnStore, padded_device_bytes
 from repro_torch.serve.compiler import compile_batch
 from repro_torch.serve.engine import BatchEngine, cache_probe_scan
+from repro_torch.tenancy import MemoryGovernor, MultiTenantRuntime, Tenant, TenantColumnStores
 
 ROOT = Path(__file__).resolve().parents[1]
 COLS = [("a", 32), ("b", 48), ("c", 24)]
@@ -317,6 +319,12 @@ ENTRY_POINTS = {
     "SemanticCache": lambda db: SemanticCache(),
     "execute_plan_fused": lambda db: execute_plan_fused(
         db, *_one_query_workload(db)[0].queries, QueryPlan(0, [], [], 1.0, 1.0)),
+    "MultiTenantRuntime": lambda db: MultiTenantRuntime(
+        [Tenant("t", db, Mint(db, device="cpu"), *_one_query_workload(db))], 10**9),
+    "TenantColumnStores.register": lambda db: TenantColumnStores(
+        MemoryGovernor(10**9)).register("t", db),
+    "replay": lambda db: replay(ReplayScenario(), serving_space().defaults()),
+    "AutoTuner": lambda db: AutoTuner(ReplayScenario()),
 }
 
 
