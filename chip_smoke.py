@@ -88,13 +88,28 @@ into ``build/kernels/``), then:
      its trial (fingerprint, snapshot, objectives) and on the CPU equal in
      device bytes, dispatches a flush and fingerprint; the scan at the
      replays' largest dispatch held against its plain version and timed as
-     in 4;
+     in 4; then serving over a row-sharded mesh (phase ``mesh_path``):
+     ``make_debug_mesh(4, 1)`` repeats the card over four data ranks of
+     250,016 rows, and against the single-device engine over the same
+     store (a) the MINT and PerColumn plans through ``BatchEngine`` on the
+     mesh give equal ids, numDist, costs and dispatch counters, (b) a
+     64-query flat burst takes one dispatch and four scan launches and the
+     tournament step's values equal the single-device scan bit for bit
+     (exact ties counted), (c) flat and keep-masked (~10%) flat scans over
+     10,000 inserts and 10,000 deletes ride the step's ``bad`` operand in
+     two dispatches a group and give equal ids (``same_topk``), (d)
+     ``distributed_rerank`` of 200,000 candidates equals one distance-kernel
+     call bit for bit, (e) ``launch/search_dryrun`` on the meta production
+     mesh prints the tournament's and the naive gather's collective bytes;
+     the scan at a shard's shape and the distance kernel at the rows rank 0
+     owns in the rerank held against their plain versions and timed as in 4;
   10. the same path on the CPU and on the card at the serving-test scale
      (2,500 rows): configuration, plans, numDist, costs and ids must agree,
      and a StepExecutor-driven async online run of 48 arrivals gives equal
      ids, flush, plan-cache and semantic-cache stats; then the torch
      quickstart (``examples/torch_quickstart.py``) over
-     ``hnsw`` at 100,000 rows (phase ``graph_path``; MINT's recall >=
+     ``hnsw`` at 50,000 rows (phase ``graph_path``, cut from 100,000 to make
+     room for ``mesh_path``; MINT's recall >=
      theta) and its plans over ``diskann``;
   11. the model substrate's serving path at Gemma-2-27B's full width and
      depth (46 layers, d_model 4608, 32 / 16 heads of 128, d_ff 36864,
@@ -541,7 +556,8 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
 SELECTIVITIES = (0.001, 0.01, 0.1, 0.5)
 ACCESSES = (None, "pre", "masked", "post")  # None: the planner's choice
 CHURN_ROWS = 10_000  # inserted and deleted each: 1% of the paper's rows each way
-GRAPH_ROWS = 100_000
+GRAPH_ROWS_UNCUT = 100_000
+GRAPH_ROWS = 50_000  # cut to make room for mesh_path (host-numpy kNN pools)
 
 
 def quantile_pred(attrs, n_rows: int, sel: float, lo_q: float = 0.2):
@@ -710,23 +726,12 @@ def phase_filter_path(main: dict, dev) -> dict:
                 prefilter=dispatches.largest["prefilter"])
 
 
-def phase_mutation_path(main: dict, filt: dict, dev) -> dict:
-    """Mutated serving: the 1,000,000-row table takes 10,000 inserted rows
-    (``make_database(10_000, PAPER_COLUMNS, seed=77)``, with attributes) and
-    10,000 deletes of seeded live ids; flat plans, the MINT plans and the
-    filtered workload are served over base + delta; then the table is
-    compacted (``Compactor``, ``swap_store``, ``rebase``) and the flat plans
-    served again."""
-    from dataclasses import replace
-    from repro_torch.core.types import QueryPlan
+def churned_table(db, attrs):
+    """A ``MutableTable`` over ``db`` after 10,000 inserted rows
+    (``make_database(10_000, PAPER_COLUMNS, seed=77)``, with attributes in
+    ``attrs``) and 10,000 deletes of seeded live ids."""
     from repro_torch.data.vectors import PAPER_COLUMNS, make_database
-    from repro_torch.ingest import (CompactionPolicy, Compactor, DeleteBatch, InsertBatch,
-                                    MutableTable, MutationView)
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve.compiler import compile_batch
-    db, wl, r, two = main["db"], main["workload"], main["path"], main["two"]
-    eng, attrs, planner = r["engine"], filt["attrs"], filt["planner"]
-    t_phase = t0 = time.perf_counter()
+    from repro_torch.ingest import DeleteBatch, InsertBatch, MutableTable
     table = MutableTable(db)
     fresh = make_database(CHURN_ROWS, PAPER_COLUMNS, seed=77)
     _, new_ids = table.apply(InsertBatch(fresh.columns))
@@ -735,6 +740,24 @@ def phase_mutation_path(main: dict, filt: dict, dev) -> dict:
                         "score": rng.random(CHURN_ROWS).astype(np.float32),
                         "source": [f"src{s}" for s in rng.integers(0, 4, CHURN_ROWS)]})
     table.apply(DeleteBatch(rng.choice(table.live_ids(), size=CHURN_ROWS, replace=False)))
+    return table
+
+
+def phase_mutation_path(main: dict, filt: dict, dev) -> dict:
+    """Mutated serving: the 1,000,000-row table after ``churned_table``'s
+    10,000 inserts and 10,000 deletes; flat plans, the MINT plans and the
+    filtered workload are served over base + delta; then the table is
+    compacted (``Compactor``, ``swap_store``, ``rebase``) and the flat plans
+    served again."""
+    from dataclasses import replace
+    from repro_torch.core.types import QueryPlan
+    from repro_torch.ingest import CompactionPolicy, Compactor, MutationView
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.compiler import compile_batch
+    db, wl, r, two = main["db"], main["workload"], main["path"], main["two"]
+    eng, attrs, planner = r["engine"], filt["attrs"], filt["planner"]
+    t_phase = t0 = time.perf_counter()
+    table = churned_table(db, attrs)
     check(CompactionPolicy().should_compact(table) is None,
           "1% churn each way should stay under the compaction policy")
     mv = MutationView(table, device=dev)
@@ -1905,6 +1928,271 @@ def phase_autotune_kernel_time(at: dict, peaks) -> list[dict]:
         achieved_tflops=flops / ms / 1e9)]
 
 
+# ---- serving over a row-sharded mesh on the card ------------------------------------
+
+MESH_SHARDS = 4       # make_debug_mesh(4, 1): the card repeated over four data ranks
+MESH_BUDGET_S = 60.0  # the phase's share of the script's time limit
+RERANK_CANDIDATES = 200_000
+
+
+def phase_mesh_path(main: dict, dev) -> dict:
+    """The main path's tuned 1,000,000-row database served over a 4-shard
+    row mesh on the card (``make_debug_mesh(4, 1)``), against the
+    single-device engine over the same store: (a) the MINT and PerColumn
+    plans, (b) a 64-query flat burst, (c) flat and keep-masked flat scans
+    over 10,000 inserts and 10,000 deletes, (d) ``distributed_rerank``,
+    (e) the search dry-run on the meta mesh."""
+    from dataclasses import replace
+    from repro_torch.core.types import QueryPlan
+    from repro_torch.data.vectors import make_queries
+    from repro_torch.filter import synth_attributes
+    from repro_torch.ingest import MutationView
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.distance.kernel import batched_scores
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.launch import search_dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.search.distributed import distributed_rerank, make_search_step
+    from repro_torch.serve.columnstore import ColumnStore
+    from repro_torch.serve.compiler import compile_batch
+    from repro_torch.serve.engine import BatchEngine
+    t_phase = time.perf_counter()
+    db, wl, r = main["db"], main["workload"], main["path"]
+    col, qmat, k = main["col"], main["qmat"], main["k"]
+    mesh = make_debug_mesh(MESH_SHARDS, 1)
+    mcs = ColumnStore(db, mesh=mesh)
+    # the main store's host concatenations, shared: no second host copy of
+    # the columns (the mesh store pads and uploads its own device shards)
+    mcs._host = main["cstore"]._host
+    mesh_eng = BatchEngine(db, store=r["store"], cstore=mcs)
+    one = BatchEngine(db, store=r["store"], cstore=main["cstore"])
+    steps, out = {}, {}
+    # the mesh's own launches: the sum, over every mesh call below, of the
+    # launches between reading the counts just before it and just after;
+    # the single-device runs it is compared with stay outside the sum
+    counts = dict.fromkeys(MINT_KERNELS, 0)
+
+    def on_mesh(fn, *args):
+        """``fn(*args)`` (a mesh call) -> (its result, its launches), which
+        are added to ``counts``."""
+        before = launch_counts()
+        res = fn(*args)
+        after = launch_counts()
+        d = {n: after[n] - before[n] for n in MINT_KERNELS}
+        for n, c in d.items():
+            counts[n] += c
+        return res, d
+
+    def on_one(fn, *args):
+        """``fn(*args)`` (a single-device call) -> (its result, its launches)."""
+        before = launch_counts()
+        res = fn(*args)
+        return res, {n: launch_counts()[n] - before[n] for n in MINT_KERNELS}
+
+    reset_launch_counts()
+
+    # (a) the tuned plans: ids, numDist, costs and counters equal; each flat
+    #     scan that is one launch on one device is one launch a shard
+    t0 = time.perf_counter()
+    for label, res in (("mint", r["result"]), ("per_column", r["pc"])):
+        t1 = time.perf_counter()
+        m, md = on_mesh(mesh_eng.execute_workload, wl, res, r["gt"])
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        o, od = on_one(one.execute_workload, wl, res, r["gt"])
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        for a, b in zip(m.per_query, o.per_query):
+            check(np.array_equal(np.asarray(a.ids), np.asarray(b.ids)),
+                  f"mesh {label}: q{a.qid} ids differ from the single-device engine")
+            check((a.num_dist, a.cost) == (b.num_dist, b.cost),
+                  f"mesh {label}: q{a.qid} numDist / cost differ")
+        check(md == dict(od, streaming_fused_scan=MESH_SHARDS * od["streaming_fused_scan"]),
+              f"mesh {label}: launches {md} (mesh), {od} (one device)")
+        out[label] = dict(mesh_serve_s=mesh_s, single_serve_s=one_s,
+                          weighted_cost=m.weighted_cost, mean_recall=m.mean_recall,
+                          mesh_launches=md, single_launches=od)
+    check(mesh_eng.counters.as_dict() == one.counters.as_dict(),
+          f"mesh counters {mesh_eng.counters.as_dict()} vs {one.counters.as_dict()}")
+    check(counts["streaming_fused_scan"] > 0, "the tuned plans made no flat scan on the mesh")
+    out["tuned_counters"] = mesh_eng.counters.as_dict()
+    steps["tuned_plans"] = time.perf_counter() - t0
+
+    # (b) a flat burst: one dispatch, four shard launches, the single-device
+    #     scan's values bit for bit
+    t0 = time.perf_counter()
+    mflat = BatchEngine(db, store=None, cstore=mcs)
+    oflat = BatchEngine(db, store=None, cstore=main["cstore"])
+    burst = make_queries(db, [col.vid] * 64, k=k, seed=7)
+    pairs = [(bq, QueryPlan(bq.qid, [], [], 0.0, 1.0)) for bq in burst]
+    check(len(compile_batch(pairs)) == 1, "the mesh burst did not compile to one group")
+    got, d = on_mesh(mflat.search_batch, pairs)
+    shard_launches = d["streaming_fused_scan"]
+    check(mflat.counters.scan == 1 and shard_launches == MESH_SHARDS,
+          f"mesh burst: {mflat.counters.scan} dispatches, {shard_launches} scan launches")
+    for a, b in zip(got, oflat.search_batch(pairs)):
+        check(np.array_equal(a, b), "mesh burst: ids differ from the single-device engine")
+    mcol = mcs.device(col.vid)
+    step = make_search_step(mesh, k, valid_n=col.n_rows)
+    (vals, ids), d = on_mesh(step, mcol.shards, qmat)
+    check(d["streaming_fused_scan"] == MESH_SHARDS,
+          f"the mesh step made {d['streaming_fused_scan']} scan launches")
+    v1, i1 = streaming_fused_scan(qmat, col.data, k=k, valid_n=col.n_rows)
+    check(torch.equal(vals, v1), "mesh step values differ from the single-device scan")
+    ties = int((v1[:, 1:] == v1[:, :-1]).sum())
+    diff = (ids != i1).nonzero().tolist()
+    check(all(bool((v1[b] == v1[b, j]).sum() > 1) for b, j in diff),
+          f"mesh step ids differ outside exact ties at {diff[:8]}")
+    out["burst"] = dict(batch=64, shape=[64, col.n_rows, col.padded_dim, k],
+                        dispatches=mflat.counters.scan, scan_launches=shard_launches,
+                        values_bit_equal=True, exact_ties=ties, ids_differing_at_ties=diff[:16],
+                        shard_rows=[int(x.shape[0]) for x in mcol.shards])
+    steps["flat_burst"] = time.perf_counter() - t0
+
+    # (c) filtered and mutated flat scans: the masks ride the step's bad
+    #     operand, base and delta are two dispatches a (group, index), each
+    #     one launch a shard
+    t0 = time.perf_counter()
+    attrs = synth_attributes(db.n_rows, seed=0, device=dev)
+    pred = quantile_pred(attrs, db.n_rows, 0.1)
+    table = churned_table(db, attrs)
+    mv = MutationView(table, device=dev)
+    for e in (mflat, oflat):
+        e.attach_mutations(mv)
+        e.attach_filters(attrs)
+    qs = wl.queries
+    cells = {"flat": [(q, QueryPlan(q.qid, [], [], 0.0, 1.0)) for q in qs],
+             "masked": [(replace(q, predicate=pred),
+                         QueryPlan(q.qid, [], [], 0.0, 1.0, access_path="masked",
+                                   selectivity=0.1)) for q in qs]}
+    for label, cpairs in cells.items():
+        groups = len(compile_batch(cpairs))
+        for e in (mflat, oflat):
+            e.counters.reset()
+        t1 = time.perf_counter()
+        got, d = on_mesh(mflat.search_batch, cpairs)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t1
+        want = oflat.search_batch(cpairs)
+        swaps = sum(same_topk(oflat, q, a, b, f"mesh {label}: q{q.qid}")
+                    for (q, _), a, b in zip(cpairs, got, want))
+        mc, oc = mflat.counters.as_dict(), oflat.counters.as_dict()
+        check(mc["scan"] == mc["delta"] == groups and oc["scan"] == groups
+              and oc["delta"] == 0,
+              f"mesh {label}: counters {mc} (mesh), {oc} (one device), {groups} groups")
+        check(d["streaming_fused_scan"] == MESH_SHARDS * (mc["scan"] + mc["delta"]),
+              f"mesh {label}: {d['streaming_fused_scan']} scan launches for "
+              f"{mc['scan'] + mc['delta']} dispatches")
+        out[f"mutated_{label}"] = dict(groups=groups, mesh_counters=mc, single_counters=oc,
+                                       mesh_launches=d, near_tie_swaps=swaps,
+                                       mesh_serve_s=mesh_s,
+                                       n_match=mflat._filter_state(pred).n_match
+                                       if label == "masked" else None)
+    for e in (mflat, oflat):
+        e.detach_mutations()
+        e.detach_filters()
+    del table, mv, attrs
+    steps["filtered_mutated"] = time.perf_counter() - t0
+
+    # (d) the distributed rerank against the single-device distance kernel
+    t0 = time.perf_counter()
+    cand = torch.as_tensor(np.unique(np.random.default_rng(9).choice(
+        col.n_rows, RERANK_CANDIDATES, replace=False)), device=dev)
+    (rv, ri), d = on_mesh(distributed_rerank, mesh, mcol.shards, cand, qmat[0], k)
+    rerank_launches = d["batched_scores"]
+    s1 = batched_scores(qmat[:1], col.data[cand])[0]
+    best = torch.sort(s1, descending=True, stable=True)
+    check(torch.equal(rv, best.values[:k]) and torch.equal(ri, cand[best.indices[:k]]),
+          "distributed rerank differs from the single-device distance kernel")
+    check(rerank_launches == MESH_SHARDS, f"the rerank made {rerank_launches} launches")
+    n_local = int(mcol.shards[0].shape[0])
+    owned0 = cand[cand < n_local]
+    out["rerank"] = dict(candidates=int(cand.shape[0]), k=k, launches=rerank_launches,
+                         bit_equal=True, shard0_owned=int(owned0.shape[0]))
+    steps["rerank"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    # (e) the dry-run on the production mesh, shapes only
+    t0 = time.perf_counter()
+    recs = {rec["variant"]: rec for rec in search_dryrun.run(device="meta")}
+    tour = recs["tournament_topk"]
+    out["dryrun"] = dict(
+        rows=tour["rows"], dim=tour["dim"], queries=tour["queries"], k=tour["k"],
+        mesh=tour["mesh"],
+        naive_bytes=recs["naive_gather_scores"]["collectives"]["total_bytes"],
+        tournament_bytes=tour["collectives"]["total_bytes"],
+        columnstore_tournament_bytes=recs["columnstore_tournament"]["collectives"]["total_bytes"],
+        naive_over_tournament=tour["naive_over_tournament_bytes"],
+        predicted_n_local_over_k=tour["predicted_ratio_n_local_over_k"],
+        padded_device_bytes=tour["padded_device_bytes"],
+        plan_groups=recs["plan_group_compiler"])
+    steps["dryrun"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    emit("mesh_path", rows=db.n_rows, shards=MESH_SHARDS, mesh=mesh.shape,
+         seconds=seconds, budget_s=MESH_BUDGET_S, step_s=steps, launches=counts,
+         resident_shard_bytes=mcs.total_device_bytes(), **out)
+    return dict(mesh=mesh, shards=mcol.shards, col=col, owned0=owned0, qmat=qmat, k=k,
+                counts=counts)
+
+
+def phase_mesh_kernel_times(mk: dict, peaks) -> list[dict]:
+    """The scan at one shard's shape (the burst's 64 queries over rank 0's
+    rows) and the distance kernel at the rows rank 0 owns in the rerank,
+    each held against its plain version and timed beside its library call
+    and bound; the whole 4-shard step (four launches and the merge) timed
+    beside the single-device scan of the column. Launches are the mesh
+    phase's."""
+    from repro_torch.kernels.distance.kernel import batched_scores
+    from repro_torch.kernels.distance.ref import batched_scores_ref
+    from repro_torch.kernels.parity import (check_scores, check_topk,
+                                            combined_plain_scores, two_pass_scan)
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    from repro_torch.search.distributed import make_search_step
+    x, q, k = mk["shards"][0], mk["qmat"], mk["k"]
+    col = mk["col"]
+    step = make_search_step(mk["mesh"], k, valid_n=col.n_rows)
+    step_ms = cuda_ms(lambda: step(mk["shards"], q))
+    single_ms = cuda_ms(lambda: streaming_fused_scan(q, col.data, k=k, valid_n=col.n_rows))
+    (B, d), n = q.shape, x.shape[0]
+    kw = dict(valid_n=n)
+    vals, ids = streaming_fused_scan(q, x, k=k, **kw)
+    rvals, rids = streaming_fused_scan_ref(q, x, k, **kw)
+    err, swaps = check_topk(vals, ids, rvals, rids, combined_plain_scores(q, x, "dot", kw),
+                            d, "mesh shard scan")
+    v2, i2 = two_pass_scan(q, x, k, "dot", kw)
+    check(torch.equal(v2, vals) and torch.equal(i2, ids),
+          "two-pass scan differs from the streaming scan (mesh shard)")
+    ms = cuda_ms(lambda: streaming_fused_scan(q, x, k=k, **kw))
+    plain = cuda_ms(lambda: streaming_fused_scan_ref(q, x, k, **kw))
+    lib = cuda_ms(lambda: torch.topk(q @ x.T, k, dim=1))
+    nbytes, flops = 4 * (B * d + n * d) + 8 * B * k, 2.0 * B * n * d
+    rows = [table_row(
+        "streaming_fused_scan[mesh_shard]", "cuda", "src/repro_torch/csrc/streaming.cu",
+        "src/repro/kernels/streaming/kernel.py:44", mk["counts"]["streaming_fused_scan"],
+        err, ms, plain, lib, bound(nbytes, flops, peaks), use="mesh_shard",
+        shape=[B, n, d, k], near_tie_swaps=swaps, two_pass_equal=True,
+        library="matmul + topk", achieved_gbps=nbytes / ms / 1e6,
+        achieved_tflops=flops / ms / 1e9, mesh_step_ms=step_ms,
+        single_device_scan_ms=single_ms)]
+    q1, sub = q[:1], x[mk["owned0"]]
+    m = sub.shape[0]
+    err = check_scores(batched_scores(q1, sub), batched_scores_ref(q1, sub), d,
+                       "distance at the mesh rerank's owned rows")
+    ms = cuda_ms(lambda: batched_scores(q1, sub))
+    plain = cuda_ms(lambda: batched_scores_ref(q1, sub))
+    lib = cuda_ms(lambda: q1 @ sub.T)
+    nbytes, flops = 4 * (d + m * d + m), 2.0 * m * d
+    rows.append(table_row(
+        "batched_scores[mesh_rerank]", "cuda", "src/repro_torch/csrc/distance.cu",
+        "src/repro/kernels/distance/kernel.py:23", mk["counts"]["batched_scores"], err,
+        ms, plain, lib, bound(nbytes, flops, peaks), use="mesh_rerank", shape=[1, m, d],
+        library="matmul", achieved_gbps=nbytes / ms / 1e6,
+        achieved_tflops=flops / ms / 1e9))
+    return rows
+
+
 # ---- CPU vs card -----------------------------------------------------------------------
 
 
@@ -2324,8 +2612,8 @@ def main() -> int:
                     help="arrivals of the online path's traces (cut only if the "
                          "phase runs past its budget; the cut is printed)")
     ap.add_argument("--graph-rows", type=int, default=GRAPH_ROWS,
-                    help="rows of the graph path's quickstart database (cut only "
-                         "if the phase runs past 150 s; the cut is printed)")
+                    help="rows of the graph path's quickstart database (cut from "
+                         "100,000 to make room for the mesh path; the cut is printed)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2382,10 +2670,16 @@ def main() -> int:
         phase_tenant_path(main_path, dev, TENANT_ARRIVALS)
         at = phase_autotune_path(dev, AUTOTUNE_ROWS)
         rows += phase_autotune_kernel_time(at, peaks)
-        del main_path, at  # the model needs the card's memory
+        del at
+        gc.collect()
+        mesh = phase_mesh_path(main_path, dev)
+        rows += phase_mesh_kernel_times(mesh, peaks)
+        del main_path, mesh  # the model needs the card's memory
+        gc.collect()
         phase_cpu_vs_card()
-        if args.graph_rows != GRAPH_ROWS:
-            emit("scale_cut", graph_rows=args.graph_rows, graph_rows_default=GRAPH_ROWS)
+        if args.graph_rows < GRAPH_ROWS_UNCUT:
+            emit("scale_cut", graph_rows=args.graph_rows, graph_rows_uncut=GRAPH_ROWS_UNCUT,
+                 why="room for mesh_path in the time limit (host-numpy kNN pools)")
         phase_graph_path(dev, args.graph_rows)
         model = phase_model_path(dev)
         del model["params"]

@@ -44,7 +44,8 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
     kernel takes it in place of its own reduction over the base (the same
     function, so the same values; the plain version recomputes it).
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version,
+    and so does a ``meta`` tensor (shapes only: the dry-runs).
     """
     if metric not in METRIC_CODES:
         raise ValueError(f"unknown metric {metric!r}")
@@ -55,7 +56,7 @@ def streaming_fused_scan(q: torch.Tensor, db: torch.Tensor, k: int,
                          f"{None if delta is None else delta.shape} != {d}")
     Nd = 0 if delta is None else delta.shape[0]
     k_eff = min(k, Nb + Nd)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return streaming_fused_scan_ref(
             q, db, k_eff, metric=metric, valid_n=valid_n, dead_mask=dead_mask,
             delta=delta, delta_valid_n=delta_valid_n,

@@ -1,6 +1,27 @@
 """Modeled HBM traffic of one scan dispatch (the engine's plan-group
-attribution seam); a copy of the reference's ``modeled_scan_bytes``."""
+attribution seam; a copy of the reference's ``modeled_scan_bytes``), and
+the collective bytes of a mesh step.
+
+The reference parses collective bytes out of compiled HLO: the RESULT
+buffer of every all-gather / all-reduce / reduce-scatter / all-to-all /
+collective-permute of the per-device program. The port has no HLO: its
+collectives (``distributed.collectives``) add the same per-device result
+bytes to ``mesh.log`` as they run, and ``collective_bytes`` reports them.
+"""
 from __future__ import annotations
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+
+def collective_bytes(log) -> dict:
+    """``{"by_kind": {kind: {"count", "bytes"}}, "total_bytes"}`` from a
+    mesh's ``log`` (kind -> (calls, bytes)), in the shape of the
+    reference's ``collective_bytes``."""
+    by_kind: dict[str, dict] = {k: {"count": 0, "bytes": 0} for k in _COLLECTIVES}
+    for kind, (calls, nbytes) in log.items():
+        by_kind[kind] = {"count": calls, "bytes": nbytes}
+    return {"by_kind": by_kind, "total_bytes": sum(v["bytes"] for v in by_kind.values())}
 
 
 def modeled_scan_bytes(B: int, N: int, d: int, k: int, masked: bool = True,

@@ -9,7 +9,7 @@ immutable, prefill and decode write the new k / v into the cache they are
 given, in place, and return that same dict: a 27B model's cache is
 gigabytes, and a copy per step would double it. The other families raise
 ``NotImplementedError`` until their slice is ported (ROADMAP.md, Queue 1,
-item 12).
+item 6).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ def _require_dense(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP.md "
-            f"Queue 1, item 12 (the moe, hybrid, ssm, encdec and vlm families)")
+            f"Queue 1, item 6 (the moe, hybrid, ssm, encdec and vlm families)")
 
 
 # --------------------------------------------------------------------------

@@ -11,18 +11,26 @@ Padding policy: pad rows/dims with zeros; zero feature padding is exact for
 dot scores, and padded rows are masked inside the scans via their
 ``valid_n`` argument (they must never win a top-k slot). The padded
 footprint arithmetic is the reference's, so device-byte accounting matches.
-Single device only: a mesh raises until the distributed slice.
+
+Under a mesh (``launch.mesh.Mesh``) the row count is additionally rounded up
+to a multiple of the data-axis size and each column is held as its per-rank
+row blocks in the layout of ``distributed.sharding.row_sharding``, which the
+distributed tournament scan consumes directly. Where every rank shares one
+device (a debug mesh) the blocks are views of one padded tensor: no extra
+bytes. A sharded column has no whole-column tensor (``data`` is None).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import Vid, norm_vid
 from repro_torch.data.vectors import MultiVectorDatabase
+from repro_torch.distributed.sharding import row_sharding
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import Mesh
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -41,21 +49,47 @@ def padded_device_bytes(n_rows: int, dim: int, block_rows: int = 128,
 
 @dataclass
 class DeviceColumn:
-    """One vid's device-resident concat, padded to kernel block shapes."""
+    """One vid's device-resident concat, padded to kernel block shapes:
+    one tensor (``data``), or under a mesh its per-rank row blocks
+    (``shards``, ``data`` None)."""
 
     vid: Vid
-    data: torch.Tensor  # (n_padded, dim_padded), zero-padded
-    n_rows: int         # valid rows (the scans' valid_n)
-    dim: int            # valid feature dim
+    data: torch.Tensor | None  # (n_padded, dim_padded), zero-padded
+    n_rows: int                # valid rows (the scans' valid_n)
+    dim: int                   # valid feature dim
+    shards: list[torch.Tensor] | None = None  # per-rank (n_local, dim_padded)
+    # layout -> per-rank blocks of ``data`` (a single-device column scanned
+    # under a mesh); not charged to ``device_bytes``
+    _cuts: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def _blocks(self) -> list[torch.Tensor]:
+        return self.shards if self.data is None else [self.data]
+
+    def cut(self, layout) -> list[torch.Tensor]:
+        """``data`` in ``layout``'s per-rank row blocks, cut on first use."""
+        if layout not in self._cuts:
+            self._cuts[layout] = layout.shard(self.data)
+        return self._cuts[layout]
+
+    @property
+    def padded_rows(self) -> int:
+        return sum(int(b.shape[0]) for b in self._blocks())
 
     @property
     def padded_dim(self) -> int:
-        return int(self.data.shape[1])
+        return int(self._blocks()[0].shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        """Where queries go: the tensor's device, or rank 0's."""
+        return self._blocks()[0].device
 
     @property
     def device_bytes(self) -> int:
-        """PADDED device footprint (the governor's accounting unit)."""
-        return int(self.data.numel()) * int(self.data.element_size())
+        """PADDED device footprint (the governor's accounting unit); row
+        blocks partition the padded rows, so views of one tensor count it
+        once."""
+        return sum(int(b.numel()) * int(b.element_size()) for b in self._blocks())
 
     def pad_host(self, qmat: np.ndarray) -> np.ndarray:
         """(B, dim) host queries -> (B, padded_dim) contiguous host float32."""
@@ -68,7 +102,7 @@ class DeviceColumn:
 
     def pad_queries(self, qmat: np.ndarray) -> torch.Tensor:
         """(B, dim) host queries -> (B, padded_dim) tensor on the column's device."""
-        return torch.as_tensor(self.pad_host(qmat), device=self.data.device)
+        return torch.as_tensor(self.pad_host(qmat), device=self.device)
 
 
 class ColumnStore:
@@ -76,16 +110,22 @@ class ColumnStore:
 
     def __init__(self, db: MultiVectorDatabase, mesh=None, axis: str = "data",
                  block_rows: int = 128, block_dim: int = 128, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded columns are the distributed slice (ROADMAP.md, "
-                "Queue 1); the port serves from one device")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         self.db = db
+        self.mesh = mesh
         self.axis = axis
         self.block_rows = block_rows
         self.block_dim = block_dim
-        # ``device`` names the method below, so the target is ``torch_device``
-        self.torch_device = resolve_device(device)
+        # ``device`` names the method below, so the target is ``torch_device``:
+        # under a mesh, the mesh's home device (queries and results live there)
+        if mesh is None:
+            self.torch_device = resolve_device(device)
+        else:
+            self.torch_device = mesh.home
+            if device is not None and resolve_device(device) != mesh.home:
+                raise ValueError(f"device {device} is not the mesh's home {mesh.home}")
         self._host: dict[Vid, np.ndarray] = {}
         self._device: dict[Vid, DeviceColumn] = {}
 
@@ -105,20 +145,32 @@ class ColumnStore:
         if vid not in self._device:
             mat = self.host(vid)
             n, d = mat.shape
-            np_pad = _round_up(n, self.block_rows) - n
+            np_pad = _round_up(n, self._row_mult()) - n
             nd_pad = _round_up(d, self.block_dim) - d
             if np_pad or nd_pad:
                 mat = np.pad(mat, ((0, np_pad), (0, nd_pad)))
-            arr = torch.as_tensor(np.ascontiguousarray(mat), device=self.torch_device)
-            self._device[vid] = DeviceColumn(vid=vid, data=arr, n_rows=n, dim=d)
+            mat = np.ascontiguousarray(mat)
+            if self.mesh is None:
+                col = DeviceColumn(vid=vid, data=torch.as_tensor(mat, device=self.torch_device),
+                                   n_rows=n, dim=d)
+            else:
+                col = DeviceColumn(vid=vid, data=None, n_rows=n, dim=d,
+                                   shards=row_sharding(self.mesh, self.axis).shard(mat))
+            self._device[vid] = col
         return self._device[vid]
+
+    def _row_mult(self) -> int:
+        if self.mesh is None:
+            return self.block_rows
+        return _round_up(self.block_rows, int(self.mesh.shape[self.axis]))
 
     def device_bytes(self, vid: Vid) -> int:
         """Padded device bytes ``device(vid)`` would pin — computable BEFORE
         materialization, and equal to ``device(vid).device_bytes`` after."""
+        row_mult = 1 if self.mesh is None else int(self.mesh.shape[self.axis])
         return padded_device_bytes(self.db.n_rows, self.db.dim(norm_vid(vid)),
                                    block_rows=self.block_rows,
-                                   block_dim=self.block_dim)
+                                   block_dim=self.block_dim, row_mult=row_mult)
 
     def total_device_bytes(self) -> int:
         return sum(col.device_bytes for col in self._device.values())

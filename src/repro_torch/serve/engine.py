@@ -72,8 +72,17 @@ overlap the current batch's kernels and the submitting thread never blocks
 on a pageable copy. The staged bytes are the ones the unstaged path
 uploads, so results are bit-identical.
 
-One device serves; mesh serving raises ``NotImplementedError`` until the
-distributed slice (ROADMAP.md, Queue 1).
+Mesh serving: with a ``launch.mesh.Mesh`` the column store holds each
+column as per-rank row blocks and every flat scan is the distributed
+tournament step (``search.distributed.make_search_step``): each shard runs
+the streaming scan and only per-shard top-k candidates are merged, one
+``scan`` dispatch however many shards. Tombstones and predicates ride its
+sharded ``bad`` operand; a mutated table takes a masked base scan plus a
+separate delta scan (the merged one-launch scan is single-device). Paths
+that read whole rows (IVF probes, pre-filter gathers, the rerank) read each
+from the shard that owns it (``_take``); none reads a whole-column tensor,
+so a mesh over one repeated device runs the code a mesh of cards runs.
+Queries and results stay on the mesh's home device.
 """
 from __future__ import annotations
 
@@ -86,13 +95,17 @@ import torch
 
 from repro_torch.core.types import Query, QueryPlan, Workload
 from repro_torch.data.vectors import MultiVectorDatabase
+from repro_torch.distributed.collectives import take_rows
+from repro_torch.distributed.sharding import row_sharding
 from repro_torch.index.base import exact_topk
 from repro_torch.kernels.common import NEG_INF, resolve_device
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ops import fused_scan
 from repro_torch.kernels.streaming.ops import delta_id_offset, streaming_fused_scan
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.roofline import modeled_scan_bytes
 from repro_torch.obs import NULL_OBSERVER
+from repro_torch.search.distributed import make_search_step
 from repro_torch.serve.columnstore import ColumnStore, DeviceColumn
 from repro_torch.serve.compiler import PlanGroup, compile_batch
 
@@ -103,12 +116,6 @@ _GATHER_BYTES = 1 << 30
 
 # scores below this are masked tombstones / padding — never real candidates
 _DEAD_CUT = NEG_INF / 2
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1); the port serves "
-        "from one device")
 
 
 @dataclass
@@ -189,13 +196,13 @@ class _FilterState:
         return self._padded("delta", self.delta_keep, padded_n)
 
 
-def _gather_scores(data: torch.Tensor, rows: torch.Tensor,
-                   qmat: torch.Tensor) -> torch.Tensor:
-    """Per-query gathered-row scoring: (N, d), (B, R) int64, (B, d) -> (B, R).
-    Plain PyTorch: the reference computes this outside any Pallas kernel."""
+def _gather_scores(take, rows: torch.Tensor, qmat: torch.Tensor) -> torch.Tensor:
+    """Per-query gathered-row scoring: (B, R) int64 row ids, (B, d) ->
+    (B, R); ``take`` maps an id tensor to its (..., d) rows. Plain PyTorch:
+    the reference computes this outside any Pallas kernel."""
     B, R = rows.shape
-    step = max(1, _GATHER_BYTES // max(R * data.shape[1] * 4, 1))
-    return torch.cat([torch.einsum("brd,bd->br", data[rows[i:i + step]],
+    step = max(1, _GATHER_BYTES // max(R * qmat.shape[1] * 4, 1))
+    return torch.cat([torch.einsum("brd,bd->br", take(rows[i:i + step]),
                                    qmat[i:i + step])
                       for i in range(0, B, step)])
 
@@ -238,26 +245,34 @@ class BatchEngine:
 
     ``store`` (an ``index.registry.IndexStore``) supplies materialized
     indexes; without one, every planned index is served as a device flat
-    scan at its ek (the pure fused-kernel serving form).
+    scan at its ek (the pure fused-kernel serving form). ``mesh`` switches
+    flat scans to the distributed tournament step over row-sharded columns.
     """
 
     def __init__(self, db: MultiVectorDatabase, store=None,
                  cstore: ColumnStore | None = None, mesh=None,
                  axis: str = "data", streaming: bool | None = None,
                  observer=None, device=None):
-        if mesh is not None:
-            raise _not_ported("mesh serving")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         self.db = db
         self.obs = observer if observer is not None else NULL_OBSERVER
         self.store = store
+        self.mesh = mesh if mesh is not None else (cstore.mesh if cstore else None)
         self.axis = axis
         if cstore is not None:
+            if cstore.mesh is not self.mesh:
+                raise ValueError("the column store's mesh is not the engine's")
             self.device = cstore.torch_device
+        elif self.mesh is not None:
+            self.device = self.mesh.home
         elif store is not None and device is None:
             self.device = store.device
         else:
             self.device = resolve_device(device)
-        self.cstore = cstore or ColumnStore(db, axis=axis, device=self.device)
+        self.cstore = cstore or ColumnStore(db, mesh=self.mesh, axis=axis,
+                                            device=None if self.mesh else self.device)
         # single-launch streaming scan is the default; the two-pass path is
         # the reference oracle (streaming=False / REPRO_TWOPASS_SCAN=1)
         if streaming is None:
@@ -282,6 +297,8 @@ class BatchEngine:
         if cstore is not None and cstore.torch_device != self.device:
             raise ValueError(f"column store on {cstore.torch_device}, engine on "
                              f"{self.device}")
+        if cstore is not None and cstore.mesh is not self.mesh:
+            raise ValueError("the column store's mesh is not the engine's")
         self.store = store
         if cstore is not None:
             self.cstore = cstore
@@ -590,7 +607,7 @@ class BatchEngine:
                         cand[i][j] = ids[i, : min(it.eks[j], col.n_rows)]
                         costs[i] += float(col.dim * col.n_rows)
                         ndists[i] += col.n_rows
-                elif self.streaming:
+                elif self.streaming and self.mesh is None:
                     # base + delta in ONE launch (kernel second source)
                     s, stable, n_dj = self._merged_scan_mv(
                         mv, col, qmat, spec.vid, bucket)
@@ -660,9 +677,9 @@ class BatchEngine:
     def _scan_mv(self, mv, col, qmat, vid, items, depth, fstate=None):
         """Scored base + delta candidates of a flat fallback scan: ONE
         merged launch on the streaming path -> (s, ids, None, None,
-        n_delta), else a masked base scan and a separate delta scan ->
-        (bs, bids, ds, dids, n_delta)."""
-        if self.streaming:
+        n_delta), else (two-pass, or a mesh) a masked base scan and a
+        separate delta scan -> (bs, bids, ds, dids, n_delta)."""
+        if self.streaming and self.mesh is None:
             s, ids, n_delta = self._merged_scan_mv(mv, col, qmat, vid, depth,
                                                    fstate=fstate)
             return s, ids, None, None, n_delta
@@ -729,7 +746,7 @@ class BatchEngine:
                          phys: np.ndarray) -> np.ndarray:
         """Distance-kernel scores of ``qmat`` against the gathered rows
         ``phys`` of ``col`` -> host (B, len(phys))."""
-        sub = col.data[torch.as_tensor(phys.astype(np.int64), device=self.device)]
+        sub = self._take(col, torch.as_tensor(phys.astype(np.int64), device=self.device))
         return self._batched_scores(qmat, sub)
 
     def _prefilter_group(self, group: PlanGroup, fs: _FilterState,
@@ -849,7 +866,7 @@ class BatchEngine:
                         scored[i] = (ids[i].astype(np.int64), s[i])
                         costs[i] += float(col.dim * col.n_rows)
                         ndists[i] += col.n_rows
-                elif self.streaming:
+                elif self.streaming and self.mesh is None:
                     s, stable, n_dj = self._merged_scan_mv(
                         mv, col, qmat, spec.vid, bucket, fstate=fs)
                     for i, it in enumerate(items):
@@ -899,7 +916,7 @@ class BatchEngine:
         device keep bitmap. Returns (scores, physical ids), best-first."""
         return self._flat_scan_scored(
             col, qmat, depth,
-            keep_mask=fs.base_keep_dev(int(col.data.shape[0])))
+            keep_mask=fs.base_keep_dev(col.padded_rows))
 
     def _filtered_ground_truth(self, query: Query, pred) -> np.ndarray:
         """Brute-force oracle: exact top-k over exactly the live rows
@@ -945,16 +962,46 @@ class BatchEngine:
     def _flat_scan(self, col: DeviceColumn, qmat: torch.Tensor, k: int) -> np.ndarray:
         return self._flat_scan_scored(col, qmat, k)[1]
 
+    def _shards(self, col: DeviceColumn) -> list[torch.Tensor]:
+        """``col``'s per-rank row blocks: a mesh column's own, or those of a
+        single-device one (a delta segment), cut once per layout and kept
+        with the column (a new table version brings a new column)."""
+        if col.shards is not None:
+            return col.shards
+        return col.cut(row_sharding(self.mesh, self.axis))
+
+    def _take(self, col: DeviceColumn, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` (any shape) of ``col`` -> (*ids.shape, padded_dim) on
+        the engine's device; under a mesh each row comes from its owner."""
+        if self.mesh is None:
+            return col.data[ids]
+        return take_rows(self._shards(col), ids, self.device)
+
     def _flat_scan_scored(self, col: DeviceColumn, qmat: torch.Tensor, k: int,
                           dead_mask=None, keep_mask=None,
                           counter: str = "scan"
                           ) -> tuple[np.ndarray, np.ndarray]:
         """One batched flat dispatch -> host (scores, ids), best-first. The
         tombstone ``dead_mask`` and the predicate ``keep_mask`` are threaded
-        into the kernel row mask, so masked rows come back at NEG_INF (id 0)
-        and are dropped by the merge on every path."""
+        into the kernel row mask — and, under a mesh, composed into the
+        distributed step's sharded ``bad`` operand — so masked rows come back
+        at NEG_INF (id 0) and are dropped by the merge on every path."""
         setattr(self.counters, counter, getattr(self.counters, counter) + 1)
-        if self.streaming:
+        if self.mesh is not None:
+            bad = None
+            if dead_mask is not None or keep_mask is not None:
+                # tombstones OR not-kept: the reference's max(dead, 1 - keep)
+                # over {0, 1}, one (padded rows,) bool row bitmap
+                bad = torch.zeros(col.padded_rows, dtype=torch.bool, device=self.device)
+                if dead_mask is not None:
+                    bad |= dead_mask.to(torch.bool)
+                if keep_mask is not None:
+                    bad |= ~keep_mask.to(torch.bool)
+            step = make_search_step(self.mesh, k=k, axis=self.axis,
+                                    valid_n=col.n_rows, masked=bad is not None)
+            shards = self._shards(col)
+            vals, ids = step(shards, qmat, bad) if bad is not None else step(shards, qmat)
+        elif self.streaming:
             vals, ids = streaming_fused_scan(
                 qmat, col.data, k=min(k, col.n_rows), valid_n=col.n_rows,
                 dead_mask=dead_mask, keep_mask=keep_mask)
@@ -971,9 +1018,8 @@ class BatchEngine:
         """Masked base scan under mutations -> (scores, STABLE ids).
         Tombstones ∪ non-matching rows ride the kernel row mask, so every
         path returns the exact alive (and matching) top-``depth``."""
-        dead = mv.base_dead_mask(int(col.data.shape[0]))
-        keep = (None if fstate is None
-                else fstate.base_keep_dev(int(col.data.shape[0])))
+        dead = mv.base_dead_mask(col.padded_rows)
+        keep = None if fstate is None else fstate.base_keep_dev(col.padded_rows)
         s, ids = self._flat_scan_scored(col, qmat, min(depth, col.n_rows),
                                         dead_mask=dead, keep_mask=keep)
         return s, mv.translate(ids)
@@ -991,7 +1037,7 @@ class BatchEngine:
         k_eff = min(depth, dcol.n_rows)
         keep = None
         if fstate is not None:
-            keep = fstate.delta_keep_dev(int(dcol.col.data.shape[0]))
+            keep = fstate.delta_keep_dev(dcol.col.padded_rows)
         s, ids = self._flat_scan_scored(dcol.col, qmat, k_eff,
                                         dead_mask=dcol.dead_mask,
                                         keep_mask=keep, counter="delta")
@@ -1006,9 +1052,9 @@ class BatchEngine:
         or a separate delta dispatch. Returns (scores, STABLE ids,
         n_delta_rows) with the same contract as a ``_base_scan_mv`` +
         ``_delta_scan`` pair already merged; callers finalize with
-        ``_merge_scored``. Requires the streaming path."""
+        ``_merge_scored``. Requires the streaming path and no mesh."""
         dcol = mv.delta(vid)
-        base_pad_rows = int(col.data.shape[0])
+        base_pad_rows = col.padded_rows
         dead = mv.base_dead_mask(base_pad_rows)
         bkeep = None if fstate is None else fstate.base_keep_dev(base_pad_rows)
         if dcol is None:  # no delta rows: plain masked base scan
@@ -1016,7 +1062,7 @@ class BatchEngine:
                                             dead_mask=dead, keep_mask=bkeep)
             return s, mv.translate(ids), 0
         dkeep = (None if fstate is None
-                 else fstate.delta_keep_dev(int(dcol.col.data.shape[0])))
+                 else fstate.delta_keep_dev(dcol.col.padded_rows))
         self.counters.scan += 1
         k_eff = min(depth, col.n_rows + dcol.n_rows)
         vals, ids = streaming_fused_scan(
@@ -1091,7 +1137,8 @@ class BatchEngine:
         for i, rows in enumerate(rows_list):
             rows_mat[i, : rows.shape[0]] = rows
         scores = _host(_gather_scores(
-            col.data, torch.as_tensor(rows_mat, device=self.device), qmat))
+            lambda ids: self._take(col, ids),
+            torch.as_tensor(rows_mat, device=self.device), qmat))
         for i, (it, rows) in enumerate(zip(items, rows_list)):
             if rows.shape[0] == 0:
                 if scored is not None:

@@ -1,6 +1,6 @@
 """Serve steps of the model substrate, as in ``repro.train.step``: the
 prefill and decode steps cast the parameters to bf16 first. The training
-step waits for the training slice (ROADMAP.md, Queue 1, item 12)."""
+step waits for the training slice (ROADMAP.md, Queue 1, item 6)."""
 from __future__ import annotations
 
 import torch

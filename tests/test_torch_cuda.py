@@ -423,3 +423,110 @@ def test_governed_delta_segment_is_charged_and_released_on_card(cuda_device):
     torch.cuda.synchronize()
     assert gov.resident() == [] and gov.stats()["total_bytes"] == 0
     assert held - torch.cuda.memory_allocated() >= 5120 * 384 * 4
+
+
+# ---- serving over a row-sharded mesh on one card ----------------------------------
+#
+# make_debug_mesh(4, 1) repeats the card over four data ranks: each shard is
+# scanned by the kernel, exactly the per-shard code a mesh of cards runs.
+
+
+def _mesh_inputs(dev, n=40_000, d=384, B=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    db = torch.randn(n, d, generator=g).to(dev)
+    q = torch.randn(B, d, generator=g).to(dev)
+    bad = (torch.rand(n, generator=g) < 0.2).to(dev)
+    return db, q, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_mesh_step_per_shard_kernel_matches_plain_on_card(cuda_device, masked):
+    """Each shard's kernel scan against the plain version on that shard, and
+    the merged step against the plain scan over the whole matrix."""
+    from repro_torch.distributed import row_sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.common import NEG_INF
+    from repro_torch.kernels.parity import check_topk, combined_plain_scores
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.search.distributed import _local_scan, make_search_step
+    db, q, bad = _mesh_inputs(cuda_device)
+    mesh = make_debug_mesh(4, 1)
+    valid_n, k = 39_000, 100
+    shards = row_sharding(mesh).shard(db)
+    bads = row_sharding(mesh).shard(bad) if masked else [None] * 4
+    for r, x in enumerate(shards):
+        vn = min(max(valid_n - r * x.shape[0], 0), x.shape[0])
+        vals, ids = _local_scan(x, q, k, r * x.shape[0], valid_n=valid_n, bad=bads[r])
+        kw = dict(valid_n=vn, dead_mask=bads[r])
+        rvals, rids = streaming_fused_scan_ref(q, x, k, **kw)
+        rids = torch.where(rvals <= NEG_INF / 2, 0, rids + r * x.shape[0])
+        full = torch.nn.functional.pad(combined_plain_scores(q, x, "dot", kw),
+                                       (r * x.shape[0], 0), value=NEG_INF)
+        check_topk(vals, ids, rvals, rids, full, q.shape[1], f"shard {r}")
+    step = make_search_step(mesh, k, valid_n=valid_n, masked=masked)
+    reset_launch_counts()
+    vals, ids = step(shards, q, bad) if masked else step(shards, q)
+    assert launch_counts()["streaming_fused_scan"] == 4
+    kw = dict(valid_n=valid_n, dead_mask=bad if masked else None)
+    rvals, rids = streaming_fused_scan_ref(q, db, k, **kw)
+    check_topk(vals, ids, rvals, rids, combined_plain_scores(q, db, "dot", kw),
+               q.shape[1], "mesh step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_one_card_mesh_equals_single_device_scan_bit_for_bit(cuda_device, masked):
+    """A row's score does not depend on the shard it sits in (one FMA order
+    per row), so the merged step equals the single-device scan exactly."""
+    from repro_torch.distributed import row_sharding
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.kernels.distance.kernel import batched_scores
+    from repro_torch.search.distributed import distributed_rerank, make_search_step
+    db, q, bad = _mesh_inputs(cuda_device, seed=1)
+    mesh = make_debug_mesh(4, 1)
+    shards = row_sharding(mesh).shard(db)
+    step = make_search_step(mesh, 100, valid_n=39_000, masked=masked)
+    vals, ids = step(shards, q, bad) if masked else step(shards, q)
+    v1, i1 = streaming_fused_scan(q, db, k=100, valid_n=39_000,
+                                  dead_mask=bad if masked else None)
+    assert torch.equal(vals, v1) and torch.equal(ids, i1)
+    cand = torch.randperm(39_000, generator=torch.Generator().manual_seed(2))[:5000]
+    cand = cand.sort().values.to(cuda_device)
+    rv, ri = distributed_rerank(mesh, shards, cand, q[0], 100)
+    s = batched_scores(q[:1], db[cand])[0]
+    best = torch.sort(s, descending=True, stable=True)
+    assert torch.equal(rv, best.values[:100]) and torch.equal(ri, cand[best.indices[:100]])
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_card_equals_single_device_engine(cuda_device):
+    import numpy as np
+    from repro_torch.core.types import IndexSpec, QueryPlan
+    from repro_torch.index.registry import IndexStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve.engine import BatchEngine
+    db, qs, _, _ = _engine_fixture(cuda_device)
+    store = IndexStore(db, seed=0)
+    mesh_eng = BatchEngine(db, store=store, mesh=make_debug_mesh(4, 1))
+    one = BatchEngine(db, store=store)
+    pairs = []
+    for q in qs:
+        pairs.append((q, QueryPlan(q.qid, [], [], 1.0, 1.0)))
+        for kind in ("flat", "ivf"):
+            pairs.append((q, QueryPlan(q.qid, [IndexSpec(q.vid, kind)], [60], 1.0, 1.0)))
+            if len(q.vid) > 1:
+                pairs.append((q, QueryPlan(q.qid, [IndexSpec((c,), kind) for c in q.vid],
+                                           [60, 60], 1.0, 1.0)))
+    reset_launch_counts()
+    a = mesh_eng.execute_batch(pairs)
+    scans = launch_counts()["streaming_fused_scan"]
+    assert scans > 0 and scans % 4 == 0  # four shards a flat dispatch
+    b = one.execute_batch(pairs)
+    for m1, m2 in zip(a, b):
+        np.testing.assert_array_equal(m1.ids, m2.ids)
+        assert (m1.cost, m1.num_dist) == (m2.cost, m2.num_dist)
+    assert mesh_eng.counters.as_dict() == one.counters.as_dict()

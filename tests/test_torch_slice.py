@@ -36,7 +36,7 @@ from repro_torch.core.tuner import Mint, execute_workload, ground_truth_cache
 from repro_torch.core.types import Constraints, IndexSpec, QueryPlan, Workload
 from repro_torch.data.vectors import make_database, make_queries, make_workload
 from repro_torch.filter import Eq, synth_attributes
-from repro_torch.index.bruteforce import batch_exact_topk
+from repro_torch.index.bruteforce import FlatIndex, batch_exact_topk
 from repro_torch.index.graph import HNSWIndex, VamanaIndex, build_knn_graph
 from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.ingest import (Compactor, DeltaSegments, IngestRuntime, MutableTable,
@@ -50,6 +50,9 @@ from repro_torch.serve.columnstore import ColumnStore, padded_device_bytes
 from repro_torch.serve.compiler import compile_batch
 from repro_torch.serve.engine import BatchEngine, cache_probe_scan
 from repro_torch.tenancy import MemoryGovernor, MultiTenantRuntime, Tenant, TenantColumnStores
+from repro_torch.configs.base import get_arch
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.models.model import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 COLS = [("a", 32), ("b", 48), ("c", 24)]
@@ -325,6 +328,10 @@ ENTRY_POINTS = {
         MemoryGovernor(10**9)).register("t", db),
     "replay": lambda db: replay(ReplayScenario(), serving_space().defaults()),
     "AutoTuner": lambda db: AutoTuner(ReplayScenario()),
+    "make_debug_mesh": lambda db: make_debug_mesh(),
+    "make_production_mesh": lambda db: make_production_mesh(),
+    "BatchEngine(mesh)": lambda db: BatchEngine(db, mesh=make_debug_mesh()),
+    "FlatIndex": lambda db: FlatIndex(db.columns[0]),
 }
 
 
@@ -353,7 +360,11 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name):
 
 
 def test_unported_paths_raise(dbs):
+    """A mesh that is not a ``launch.mesh.Mesh`` is refused; the families
+    beyond the dense one are not ported yet."""
     for call in (lambda: BatchEngine(dbs[0], mesh=object(), device="cpu"),
                  lambda: ColumnStore(dbs[0], mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             call()
+    with pytest.raises(NotImplementedError):
+        init_params(get_arch("granite-moe-1b-a400m").reduced(), seed=0, device="cpu")
