@@ -23,6 +23,8 @@ from repro_torch.index.graph import HNSWIndex, VamanaIndex, _BeamSearcher
 from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.index.registry import IndexStore
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.ssm import SSMCache
+from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
 
 def ivf_from_arrays(data: np.ndarray, centroids: np.ndarray, row_ids: np.ndarray,
@@ -114,12 +116,38 @@ def estimators_from_arrays(stats: dict, dims: list[int], n_rows: int,
                            theta_hit=float(theta_hit))
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; a bfloat16 array (ml_dtypes')
+    is carried bit for bit."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
+
+
 def model_params_from_jax(params: dict, device=None) -> dict:
     """The port's parameter tree from the reference's ``init_params`` tree
     with every leaf as a numpy array (``jax.tree.map(np.asarray, params)``):
-    the same nesting, keys, stacked (L, ...) layer axis and dtypes, on
-    ``device`` (None: the card)."""
+    the same nesting of dicts, keys, stacked leading layer axes and dtypes,
+    on ``device`` (None: the card)."""
     device = resolve_device(device)
     if isinstance(params, dict):
         return {k: model_params_from_jax(v, device) for k, v in params.items()}
-    return torch.as_tensor(np.array(params), device=device)
+    return _tensor(params, device)
+
+
+def model_cache_from_jax(cache: dict, device=None) -> dict:
+    """The port's decode cache from a reference cache with every leaf as a
+    numpy array: dicts stay dicts, and the reference's state NamedTuples
+    (``SSMCache``, ``MLSTMCache``, ``SLSTMCache``) become the port's of the
+    same name and fields."""
+    states = {c.__name__: c for c in (SSMCache, MLSTMCache, SLSTMCache)}
+    device = resolve_device(device)
+
+    def carry(t):
+        if isinstance(t, dict):
+            return {k: carry(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return states[type(t).__name__](*(carry(v) for v in t))
+        return _tensor(t, device)
+    return carry(cache)

@@ -13,7 +13,8 @@ tolerance of the plain score at that slot.
 
 Flash attention has its own grid (``FLASH_CASES``, the cases of
 tests/test_kernels.py plus d = 128, a ragged S, decode's Sq = 1, rows that
-causality masks entirely, and cases for each of the kernel's routes), each
+causality masks entirely, cases for each of the kernel's routes and
+cross attention's unmasked Sq < Skv), each
 run in float32, bf16 and f16, and the JAX tests' own rule: the output within
 rtol = atol = 2e-3 of the plain version in float32, 5e-2 in bf16 and f16.
 """
@@ -316,6 +317,12 @@ FLASH_CASES = {
     # with a window and Gemma-2's softcap
     "tc_window_cap_d64": _flash(1, 2, 1, 400, 400, 64, window=160, softcap=50.0),
     "tc_window_cap_d128": _flash(1, 2, 2, 300, 330, 128, window=100, softcap=50.0),
+    # whisper's cross attention: decoder queries over the encoder's 1,500 keys,
+    # not causal (q's position changes nothing): decode (split_kv) and a
+    # prompt of 384 (tensor_core in bf16 / f16); named to sort after the
+    # cases above, whose seeds are their places in the sorted names
+    "xattn_sq1": _flash(2, 4, 4, 1, 1500, 64, causal=False),
+    "xattn_sq384": _flash(1, 2, 2, 384, 1500, 64, causal=False),
 }
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2, torch.float16: 5e-2}
 FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}

@@ -132,11 +132,15 @@ def flash_route(q, k, v, *, causal: bool = True, window=1 << 30,
     CPU tensor the wrapper computes its plain version). The kernel aligns q
     to the end of the kv sequence, so the cache is cut to ``kv_len`` and q
     must be its last Sq positions (prefill: q_offset 0 and Sq == kv_len;
-    decode: kv_len = pos + 1); anything else raises. An int8 cache is
-    dequantized on the cut cache, and then q, k and v go in float32."""
+    decode: kv_len = pos + 1), unless the call has no positional mask
+    (not causal, a window of at least kv_len: an encoder's self attention,
+    cross attention), where q's position changes nothing; anything else
+    raises. An int8 cache is dequantized on the cut cache, and then q, k and
+    v go in float32."""
     B, Sq, Hq, d = q.shape
     kv_len = k.shape[1] if kv_len is None else kv_len
-    if q_offset != kv_len - Sq:
+    unmasked = not causal and window >= kv_len
+    if q_offset != kv_len - Sq and not unmasked:
         raise ValueError(f"the flash kernel aligns q to the end of the kv "
                          f"sequence: q_offset {q_offset} != kv_len {kv_len} - Sq {Sq}")
     k, v = k[:, :kv_len], v[:, :kv_len]

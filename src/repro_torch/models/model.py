@@ -1,15 +1,20 @@
-"""Model builder: init / prefill / decode_step of the dense family
-(``qwen2-7b``, ``yi-9b``, ``codeqwen1.5-7b``, ``gemma2-27b``), as in
-``repro.models.model``.
+"""Model builder: init / prefill / decode_step for all ten registered
+architectures, dispatched on ``ArchConfig.family`` as in
+``repro.models.model``: dense (qwen2-7b, yi-9b, codeqwen1.5-7b, gemma2-27b),
+moe (the granite-moe pair), vlm (qwen2-vl-2b: an M-RoPE vision prefix),
+hybrid (zamba2-1.2b: groups of Mamba-2 layers, each followed by one shared
+attention block with its own KV slot), ssm (xlstm-350m: super-blocks of
+mLSTM layers and one sLSTM) and encdec (whisper-medium: an encoder over
+stubbed frame embeddings, a decoder with cross attention).
 
-Layer parameters are stacked along a leading (L, ...) axis, leaf for leaf
-as in the reference, and the layer stack is a Python loop over that axis.
-KV caches are stacked the same way. Unlike the reference, whose arrays are
-immutable, prefill and decode write the new k / v into the cache they are
-given, in place, and return that same dict: a 27B model's cache is
-gigabytes, and a copy per step would double it. The other families raise
-``NotImplementedError`` until their slice is ported (ROADMAP.md, Queue 1,
-item 6).
+Layer parameters are stacked along leading axes, leaf for leaf as in the
+reference ((L, ...); zamba2's groups (G, n, ...), xlstm's super-blocks
+(n_super, n_m, ...)), and each stack is a Python loop over its axes. Caches
+are stacked the same way. Unlike the reference, whose arrays are
+immutable, prefill and decode write the new k / v and recurrent states into
+the cache they are given, in place, and return that same dict: a 27B
+model's cache is gigabytes, and a copy per step would double it. Training
+(``train_loss``) comes with the training slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -19,18 +24,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
 
 ACT_DTYPE = torch.bfloat16
 NO_WINDOW = 1 << 30
-PORTED_FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP.md "
-            f"Queue 1, item 6 (the moe, hybrid, ssm, encdec and vlm families)")
+def _family(cfg: ArchConfig) -> str:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+    return cfg.family
 
 
 # --------------------------------------------------------------------------
@@ -38,20 +45,52 @@ def _require_dense(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 
-def _init_attn(gen, cfg: ArchConfig, dtype, L: int) -> dict:
+def _init_attn(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
     hd, Hq, Hkv, D = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    n = len(lead)
     p = {
-        "wq": dense_init(gen, (L, D, Hq * hd), 1, dtype),
-        "wk": dense_init(gen, (L, D, Hkv * hd), 1, dtype),
-        "wv": dense_init(gen, (L, D, Hkv * hd), 1, dtype),
-        "wo": dense_init(gen, (L, Hq * hd, D), 1, dtype),
+        "wq": dense_init(gen, (*lead, D, Hq * hd), n, dtype),
+        "wk": dense_init(gen, (*lead, D, Hkv * hd), n, dtype),
+        "wv": dense_init(gen, (*lead, D, Hkv * hd), n, dtype),
+        "wo": dense_init(gen, (*lead, Hq * hd, D), n, dtype),
     }
     if cfg.qkv_bias:
         zeros = dict(dtype=dtype, device=gen.device)
-        p["bq"] = torch.zeros((L, Hq * hd), **zeros)
-        p["bk"] = torch.zeros((L, Hkv * hd), **zeros)
-        p["bv"] = torch.zeros((L, Hkv * hd), **zeros)
+        p["bq"] = torch.zeros((*lead, Hq * hd), **zeros)
+        p["bk"] = torch.zeros((*lead, Hkv * hd), **zeros)
+        p["bv"] = torch.zeros((*lead, Hkv * hd), **zeros)
     return p
+
+
+def _init_attn_mlp_layer(gen, cfg: ArchConfig, dtype, lead: tuple,
+                         cross: bool = False) -> dict:
+    """An attention (+ cross attention) + MLP or MoE layer, stacked along
+    ``lead``."""
+    D = cfg.d_model
+
+    def zeros():
+        return torch.zeros((*lead, D), dtype=dtype, device=gen.device)
+
+    p = {"attn": _init_attn(gen, cfg, dtype, lead), "ln_attn": zeros(),
+         "ln_mlp": zeros()}
+    if cfg.sandwich_norm:
+        p["ln_attn_post"] = zeros()
+        p["ln_mlp_post"] = zeros()
+    if cross:
+        p["cross"] = _init_attn(gen, cfg, dtype, lead)
+        p["ln_cross"] = zeros()
+    if cfg.n_experts:
+        p["moe"] = MOE.init_moe(gen, D, cfg.n_experts, cfg.expert_dff, cfg.moe_top_k,
+                                dtype, layers=lead)
+    elif cfg.d_ff:
+        p["mlp"] = F.init_mlp(gen, D, cfg.d_ff, dtype, layers=lead)
+    return p
+
+
+def _init_mamba_layers(gen, cfg: ArchConfig, dtype, lead: tuple) -> dict:
+    return {"m": SSM.init_mamba2(gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+                                 cfg.ssm_headdim, cfg.ssm_conv, dtype, layers=lead),
+            "ln": torch.zeros((*lead, cfg.d_model), dtype=dtype, device=gen.device)}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
@@ -61,7 +100,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     shapes of ``repro.models.model.init_params`` (whose draws differ: to run
     the reference's weights, carry them with ``convert.model_params_from_jax``).
     Norm scales start at 0 (rms_norm multiplies by 1 + scale)."""
-    _require_dense(cfg)
+    fam = _family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     D, L = cfg.d_model, cfg.n_layers
@@ -75,33 +114,74 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, cfg.vocab_size), 0, dtype)
-    layers = {"attn": _init_attn(gen, cfg, dtype, L),
-              "ln_attn": zeros(L, D), "ln_mlp": zeros(L, D)}
-    if cfg.sandwich_norm:
-        layers["ln_attn_post"] = zeros(L, D)
-        layers["ln_mlp_post"] = zeros(L, D)
-    if cfg.d_ff:
-        layers["mlp"] = F.init_mlp(gen, D, cfg.d_ff, dtype, layers=(L,))
-    params["layers"] = layers
+    if fam in ("dense", "moe", "vlm"):
+        params["layers"] = _init_attn_mlp_layer(gen, cfg, dtype, (L,))
+    elif fam == "hybrid":  # zamba2
+        G = L // cfg.attn_every
+        params["mamba_groups"] = _init_mamba_layers(gen, cfg, dtype, (G, cfg.attn_every))
+        leftover = L - G * cfg.attn_every
+        if leftover:
+            params["mamba_tail"] = _init_mamba_layers(gen, cfg, dtype, (leftover,))
+        params["shared_attn"] = _init_attn_mlp_layer(gen, cfg, dtype, ())
+    elif fam == "ssm":  # xlstm
+        n_super, n_m = L // cfg.slstm_every, cfg.slstm_every - 1
+        params["super"] = {
+            "mlstm": {"x": XL.init_mlstm(gen, D, cfg.n_heads, cfg.proj_factor, dtype,
+                                         layers=(n_super, n_m)),
+                      "ln": zeros(n_super, n_m, D)},
+            "slstm": {"x": XL.init_slstm(gen, D, dtype, layers=(n_super,)),
+                      "ln": zeros(n_super, D)},
+        }
+    else:  # encdec: whisper
+        params["enc_layers"] = _init_attn_mlp_layer(gen, cfg, dtype, (cfg.n_enc_layers,))
+        params["dec_layers"] = _init_attn_mlp_layer(gen, cfg, dtype, (L,), cross=True)
+        params["ln_enc"] = zeros(D)
     return params
 
 
-def _leaves(tree):
+def _leaves(tree, path=()):
+    """(path, leaf) pairs of a tree of dicts and NamedTuples."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, tuple):
+        for k, v in zip(tree._fields, tree):
+            yield from _leaves(v, path + (k,))
     else:
-        yield tree
+        yield path, tree
 
 
 def param_count(params) -> int:
-    return int(sum(x.numel() for x in _leaves(params)))
+    return int(sum(x.numel() for _, x in _leaves(params)))
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked (L, ...) leaves."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+def active_param_count(cfg: ArchConfig, params) -> int:
+    """MoE: router + active experts fraction; dense: everything."""
+    total = param_count(params)
+    if not cfg.n_experts:
+        return total
+    expert = sum(x.numel() for path, x in _leaves(params)
+                 if "w_gate" in path or "w_down" in path)
+    return int(total - expert * (1 - cfg.moe_top_k / cfg.n_experts))
+
+
+def _layer(stacked, i: int):
+    """Layer ``i`` of a stack: views into the leaves' leading axis."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, tuple):
+        return type(stacked)(*(t[i] for t in stacked))
+    return stacked[i]
+
+
+def _n_stacked(stacked) -> int:
+    return next(_leaves(stacked))[1].shape[0]
+
+
+def _store(dst, src) -> None:
+    """Copy a recurrent state (a NamedTuple of tensors) into its cache views."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 # --------------------------------------------------------------------------
@@ -129,42 +209,48 @@ def _write(cache_t: torch.Tensor, new: torch.Tensor, pos: int) -> None:
 
 
 def _attn(cfg: ArchConfig, p, x, positions, *, window, causal=True,
-          kv_cache=None, pos=None):
+          kv_cache=None, pos=None, kv_override=None):
     """x: (B,S,D). kv_cache: (k, v[, k_scale, v_scale]) of (B,Smax,Hkv,hd),
     written at ``pos`` in place and then read (int8 + scales when
-    quantized)."""
+    quantized). kv_override: precomputed (k, v) (cross attention: no rope,
+    not causal, every key)."""
     B, S, D = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    q = apply_rope(q.reshape(B, S, Hq, hd), positions, cfg.rope_theta,
-                   cfg.mrope_sections)
-    k = apply_rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta,
-                   cfg.mrope_sections)
-    v = v.reshape(B, S, Hkv, hd)
+    q = q.reshape(B, S, Hq, hd)
     scales = {}
-    if kv_cache is not None:
-        if len(kv_cache) == 4 and kv_cache[2] is not None:  # int8 cache
-            ck, cv, cks, cvs = kv_cache
-            kq, ks_new = _quantize_kv(k)
-            vq, vs_new = _quantize_kv(v)
-            for cache_t, new in ((ck, kq), (cv, vq), (cks, ks_new), (cvs, vs_new)):
-                _write(cache_t, new, pos)
-            scales = dict(k_scale=cks, v_scale=cvs)
-        else:
-            ck, cv = kv_cache[:2]
-            _write(ck, k, pos)
-            _write(cv, v, pos)
-        k, v = ck, cv
-        kv_len, q_offset = pos + S, pos
+    if kv_override is not None:
+        k, v = kv_override
+        kv_len, q_offset, causal = k.shape[1], 0, False
     else:
-        kv_len, q_offset = S, 0
+        k = x @ p["wk"].to(dt)
+        v = x @ p["wv"].to(dt)
+        if "bk" in p:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta,
+                       cfg.mrope_sections)
+        v = v.reshape(B, S, Hkv, hd)
+        if kv_cache is not None:
+            if len(kv_cache) == 4 and kv_cache[2] is not None:  # int8 cache
+                ck, cv, cks, cvs = kv_cache
+                kq, ks_new = _quantize_kv(k)
+                vq, vs_new = _quantize_kv(v)
+                for cache_t, new in ((ck, kq), (cv, vq), (cks, ks_new), (cvs, vs_new)):
+                    _write(cache_t, new, pos)
+                scales = dict(k_scale=cks, v_scale=cvs)
+            else:
+                ck, cv = kv_cache[:2]
+                _write(ck, k, pos)
+                _write(cv, v, pos)
+            k, v = ck, cv
+            kv_len, q_offset = pos + S, pos
+        else:
+            kv_len, q_offset = S, 0
     if not scales:
         k, v = k.to(dt), v.to(dt)
     out = A.attention(q, k, v, causal=causal, window=window,
@@ -174,16 +260,25 @@ def _attn(cfg: ArchConfig, p, x, positions, *, window, causal=True,
 
 
 def _attn_mlp_block(cfg: ArchConfig, p, x, positions, *, window, kv_cache=None,
-                    pos=None, causal=True):
+                    pos=None, causal=True, cross_kv=None):
+    """Returns (x, aux): aux is the MoE's load-balancing loss (0 without)."""
     h = _attn(cfg, p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps),
               positions, window=window, causal=causal, kv_cache=kv_cache, pos=pos)
     if cfg.sandwich_norm:
         h = rms_norm(h, p["ln_attn_post"], cfg.norm_eps)
     x = x + h
-    h = F.mlp(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg.mlp_act)
+    if "cross" in p:
+        x = x + _attn(cfg, p["cross"], rms_norm(x, p["ln_cross"], cfg.norm_eps),
+                      positions, window=window, kv_override=cross_kv)
+    aux = 0.0
+    h_in = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    if cfg.n_experts:
+        h, aux = MOE.moe(p["moe"], h_in, cfg.moe_top_k, cfg.moe_impl)
+    else:
+        h = F.mlp(p["mlp"], h_in, cfg.mlp_act)
     if cfg.sandwich_norm:
         h = rms_norm(h, p["ln_mlp_post"], cfg.norm_eps)
-    return x + h
+    return x + h, aux
 
 
 def _layer_windows(cfg: ArchConfig, n: int) -> list[int]:
@@ -195,19 +290,22 @@ def _layer_windows(cfg: ArchConfig, n: int) -> list[int]:
 
 
 def _run_layers(cfg: ArchConfig, stacked, x, positions, *, kv_cache=None,
-                pos=None, causal=True):
-    """The attn + mlp stack, layer by layer. kv_cache: stacked (L, ...)
-    tensors, layer i's slices written in place."""
-    n = next(_leaves(stacked)).shape[0]
-    for i, window in enumerate(_layer_windows(cfg, n)):
+                pos=None, causal=True, cross_kv=None):
+    """The attn (+ cross) + mlp stack, layer by layer. kv_cache: stacked
+    (L, ...) tensors, layer i's slices written in place; cross_kv: stacked
+    (L, B, Se, Hkv, hd) (k, v). Returns (x, aux summed over layers)."""
+    aux = 0.0
+    for i, window in enumerate(_layer_windows(cfg, _n_stacked(stacked))):
         kv = None if kv_cache is None else tuple(t[i] for t in kv_cache)
-        x = _attn_mlp_block(cfg, _layer(stacked, i), x, positions, window=window,
-                            kv_cache=kv, pos=pos, causal=causal)
-    return x
+        ckv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
+        x, a = _attn_mlp_block(cfg, _layer(stacked, i), x, positions, window=window,
+                               kv_cache=kv, pos=pos, causal=causal, cross_kv=ckv)
+        aux = aux + a
+    return x, aux
 
 
 # --------------------------------------------------------------------------
-# forward
+# family forwards (shared by prefill / decode)
 # --------------------------------------------------------------------------
 
 
@@ -231,43 +329,170 @@ def _positions_for(cfg: ArchConfig, B: int, S: int, offset: int = 0, device=None
     return pos
 
 
+def _vlm_positions(cfg: ArchConfig, B: int, n_vis: int, S_text: int, device=None):
+    """M-RoPE: grid (t=0, h=row, w=col) for the vision prefix, collapsed
+    text positions after."""
+    side = max(1, int(n_vis ** 0.5))
+    vi = torch.arange(n_vis, device=device)
+    vis = torch.stack([torch.zeros_like(vi), vi // side, vi % side], dim=-1)
+    ti = 1 + torch.arange(S_text, device=device)
+    txt = torch.stack([ti, ti, ti], dim=-1)
+    return torch.cat([vis, txt], dim=0)[None].expand(B, n_vis + S_text, 3)
+
+
+def _mamba_layer(cfg: ArchConfig, p, x, ssm_cache, li: int):
+    """Mamba-2 layer ``li`` of the flat (groups, then tail) order; its state
+    is read from and written back into the stacked cache."""
+    c = None if ssm_cache is None else _layer(ssm_cache, li)
+    h, new = SSM.mamba2_forward(p["m"], rms_norm(x, p["ln"], cfg.norm_eps),
+                                cfg.ssm_state, cfg.ssm_expand, cfg.ssm_headdim, cache=c)
+    if c is not None:
+        _store(c, new)
+    return x + h
+
+
+def _zamba_forward(cfg: ArchConfig, params, x, positions, *, cache=None, pos=0):
+    n = cfg.attn_every
+    G = cfg.n_layers // n
+    ssm_cache = None if cache is None else cache["ssm"]      # stacked (L, ...)
+    aux = 0.0
+    for g in range(G):
+        group = _layer(params["mamba_groups"], g)
+        for j in range(n):
+            x = _mamba_layer(cfg, _layer(group, j), x, ssm_cache, g * n + j)
+        kv = None if cache is None else (cache["k"][g], cache["v"][g])
+        x, a = _attn_mlp_block(cfg, params["shared_attn"], x, positions,
+                               window=NO_WINDOW, kv_cache=kv, pos=pos)
+        aux = aux + a
+    for j in range(cfg.n_layers - G * n):
+        x = _mamba_layer(cfg, _layer(params["mamba_tail"], j), x, ssm_cache, G * n + j)
+    return x, cache, aux
+
+
+def _xlstm_forward(cfg: ArchConfig, params, x, *, cache=None):
+    sup = params["super"]
+    for s in range(_n_stacked(sup)):
+        p = _layer(sup, s)
+        for j in range(_n_stacked(p["mlstm"])):
+            pp = _layer(p["mlstm"], j)
+            c = None if cache is None else _layer(_layer(cache["mlstm"], s), j)
+            h, new = XL.mlstm_forward(pp["x"], rms_norm(x, pp["ln"], cfg.norm_eps),
+                                      cfg.n_heads, cache=c)
+            if c is not None:
+                _store(c, new)
+            x = x + h
+        c = None if cache is None else _layer(cache["slstm"], s)
+        h, new = XL.slstm_forward(p["slstm"]["x"],
+                                  rms_norm(x, p["slstm"]["ln"], cfg.norm_eps), cache=c)
+        if c is not None:
+            _store(c, new)
+        x = x + h
+    return x, cache, 0.0
+
+
 def forward_core(cfg: ArchConfig, params, x, positions, *, cache=None, pos=0):
     """Runs the body stack. Returns (hidden, cache, aux_loss); the cache is
     the one given, updated in place (None without one)."""
-    _require_dense(cfg)
-    if cache is None:
-        kv = None
-    elif "k_scale" in cache:
-        kv = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
-    else:
-        kv = (cache["k"], cache["v"])
-    x = _run_layers(cfg, params["layers"], x, positions, kv_cache=kv, pos=pos)
-    return x, cache, 0.0
+    fam = _family(cfg)
+    if fam in ("dense", "moe", "vlm"):
+        if cache is None:
+            kv = None
+        elif "k_scale" in cache:
+            kv = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
+        else:
+            kv = (cache["k"], cache["v"])
+        x, aux = _run_layers(cfg, params["layers"], x, positions, kv_cache=kv, pos=pos)
+        return x, cache, aux
+    if fam == "hybrid":
+        return _zamba_forward(cfg, params, x, positions, cache=cache, pos=pos)
+    if fam == "ssm":
+        return _xlstm_forward(cfg, params, x, cache=cache)
+    raise RuntimeError("encdec is handled in prefill / decode_step")
+
+
+def _whisper_encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    x = frames.to(ACT_DTYPE)
+    pos = _positions_for(cfg, frames.shape[0], frames.shape[1], device=x.device)
+    x, _ = _run_layers(cfg, params["enc_layers"], x, pos, causal=False)
+    return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def _whisper_cross_kv(cfg: ArchConfig, params, enc: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor) -> None:
+    """Each decoder layer's cross k / v from the encoder output, written into
+    the stacked (L, B, Se, Hkv, hd) ``ck`` / ``cv``."""
+    B, Se, _ = enc.shape
+    dec = params["dec_layers"]["cross"]
+    for i in range(ck.shape[0]):
+        ck[i] = (enc @ dec["wk"][i].to(enc.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+        cv[i] = (enc @ dec["wv"][i].to(enc.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
                kv_dtype=None, device=None) -> dict:
-    """Zeroed stacked KV cache (L, B, max_len, Hkv, hd) on ``device`` (None:
-    the card); ``kv_dtype="int8"`` adds per-(token, head) f32 scales."""
-    _require_dense(cfg)
+    """Zeroed decode cache of ``cfg`` on ``device`` (None: the card), the
+    reference's tree: stacked KV (L, B, max_len, Hkv, hd) for dense / moe /
+    vlm (``kv_dtype="int8"`` adds per-(token, head) f32 scales); zamba2's
+    per-layer ``SSMCache`` and per-group KV (G, B, max_len, Hkv, hd);
+    xlstm's ``MLSTMCache`` / ``SLSTMCache``; whisper's self KV and its
+    cross ``ck`` / ``cv`` of ``cross_len`` encoder positions."""
+    fam = _family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    if kv_dtype == "int8":
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    hd, Hkv, B, L = cfg.hd, cfg.n_kv_heads, batch, cfg.n_layers
+    f32 = torch.float32
+
+    def arr(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if fam in ("dense", "moe", "vlm"):
+        shape = (L, B, max_len, Hkv, hd)
+        if kv_dtype == "int8":
+            return {"k": arr(shape, torch.int8), "v": arr(shape, torch.int8),
+                    "k_scale": arr(shape[:-1], f32), "v_scale": arr(shape[:-1], f32)}
+        return {"k": arr(shape), "v": arr(shape)}
+    if fam == "hybrid":
+        G = L // cfg.attn_every
+        d_inner = cfg.ssm_expand * cfg.d_model
+        conv_dim = d_inner + 2 * cfg.ssm_state
+        ssm = SSM.SSMCache(
+            h=arr((L, B, d_inner // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state), f32),
+            conv=arr((L, B, cfg.ssm_conv - 1, conv_dim), f32))
+        return {"ssm": ssm, "k": arr((G, B, max_len, Hkv, hd)),
+                "v": arr((G, B, max_len, Hkv, hd))}
+    if fam == "ssm":
+        n_super, n_m = L // cfg.slstm_every, cfg.slstm_every - 1
+        P = int(cfg.proj_factor * cfg.d_model) // cfg.n_heads
+        H, D = cfg.n_heads, cfg.d_model
+        return {"mlstm": XL.MLSTMCache(C=arr((n_super, n_m, B, H, P, P), f32),
+                                       n=arr((n_super, n_m, B, H, P), f32),
+                                       m=arr((n_super, n_m, B, H), f32)),
+                "slstm": XL.SLSTMCache(*(arr((n_super, B, D), f32) for _ in range(4)))}
+    return {"k": arr((L, B, max_len, Hkv, hd)), "v": arr((L, B, max_len, Hkv, hd)),
+            "ck": arr((L, B, cfg.cross_len, Hkv, hd)),
+            "cv": arr((L, B, cfg.cross_len, Hkv, hd))}
+
+
+GROWN = ("k", "v", "k_scale", "v_scale")  # the cache entries with a time axis
 
 
 def grow_cache(cache: dict, max_len: int) -> dict:
     """A new cache of ``max_len`` slots whose first slots hold ``cache``'s
     (its entries keep their dtypes: bf16, or int8 with their scales): how a
     prefill's cache, sized to the prompt, becomes one that decode can extend.
-    The reference's tests grow theirs the same way (tests/test_arch_smoke.py)."""
+    Only the self-attention entries grow (their axis 2); recurrent states
+    and whisper's cross ``ck`` / ``cv`` are copied at their size. The
+    reference's tests grow theirs the same way (tests/test_arch_smoke.py)."""
     out = {}
     for key, t in cache.items():
+        if key not in GROWN:
+            out[key] = (type(t)(*(s.clone() for s in t)) if isinstance(t, tuple)
+                        else t.clone())
+            continue
         if max_len < t.shape[2]:
             raise ValueError(f"cannot grow a cache of {t.shape[2]} slots to {max_len}")
         out[key] = torch.zeros(t.shape[:2] + (max_len,) + t.shape[3:], dtype=t.dtype,
@@ -276,22 +501,53 @@ def grow_cache(cache: dict, max_len: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# public API: prefill / decode_step
+# --------------------------------------------------------------------------
+
+
 def _tokens(params, tokens) -> torch.Tensor:
     dev = params["embed"].device
     return torch.as_tensor(tokens, device=dev).long()
 
 
+def _input(params, batch: dict, key: str) -> torch.Tensor:
+    """A modality input (frames, vision embeddings) on the params' device, in
+    the activation dtype, as the reference casts it."""
+    return torch.as_tensor(batch[key], device=params["embed"].device).to(ACT_DTYPE)
+
+
 def prefill(cfg: ArchConfig, params, batch: dict):
     """Full-sequence forward that fills a new cache of the prompt's length;
     returns (last_logits (B, 1, V) f32, cache). ``batch["tokens"]`` is a
-    (B, S) array or tensor."""
-    _require_dense(cfg)
+    (B, S) array or tensor; whisper also takes ``batch["frames"]`` (B, Se, D)
+    and qwen2-vl ``batch["vision_embeds"]`` (B, n_vision, D), arrays or
+    tensors of any float dtype."""
+    fam = _family(cfg)
     tokens = _tokens(params, batch["tokens"])
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
-    positions = _positions_for(cfg, B, S, device=x.device)
-    cache = make_cache(cfg, B, S, device=x.device)
-    h, cache, _ = forward_core(cfg, params, x, positions, cache=cache, pos=0)
+    dev = tokens.device
+    if fam == "encdec":
+        enc = _whisper_encode(cfg, params, _input(params, batch, "frames"))
+        enc = enc[:, :cfg.cross_len]
+        cache = make_cache(cfg, B, S, device=dev)
+        # fewer frames than cross_len: the cross k / v hold those positions
+        cache["ck"], cache["cv"] = (cache[k][:, :, :enc.shape[1]] for k in ("ck", "cv"))
+        _whisper_cross_kv(cfg, params, enc, cache["ck"], cache["cv"])
+        x = _embed(cfg, params, tokens)
+        h, _ = _run_layers(cfg, params["dec_layers"], x, _positions_for(cfg, B, S, device=dev),
+                           kv_cache=(cache["k"], cache["v"]), pos=0,
+                           cross_kv=(cache["ck"], cache["cv"]))
+    else:
+        x = _embed(cfg, params, tokens)
+        if fam == "vlm":
+            vis = _input(params, batch, "vision_embeds")
+            x = torch.cat([vis, x], dim=1)
+            positions = _vlm_positions(cfg, B, vis.shape[1], S, device=dev)
+        else:
+            positions = _positions_for(cfg, B, S, device=dev)
+        cache = make_cache(cfg, B, x.shape[1], device=dev)
+        h, cache, _ = forward_core(cfg, params, x, positions, cache=cache, pos=0)
     h = rms_norm(h[:, -1:], params["ln_final"], cfg.norm_eps)
     return _logits(cfg, params, h), cache
 
@@ -299,12 +555,23 @@ def prefill(cfg: ArchConfig, params, batch: dict):
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     """One decode step: tokens (B, 1), ``cache`` holds ``pos`` valid entries
     and takes the new one at ``pos`` (in place). Returns (logits (B, 1, V)
-    f32, cache)."""
-    _require_dense(cfg)
+    f32, cache). For qwen2-vl, slot ``pos`` holds text token
+    ``pos - n_vision_tokens``."""
+    fam = _family(cfg)
     tokens = _tokens(params, tokens)
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens)
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    x, cache, _ = forward_core(cfg, params, x, positions, cache=cache, pos=pos)
+    if cfg.mrope_sections:
+        # the M-RoPE stream continues the collapsed text positions (1-based)
+        positions = torch.full((B, 1, 3), pos - cfg.n_vision_tokens + 1,
+                               dtype=torch.int64, device=x.device)
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    if fam == "encdec":
+        x, _ = _run_layers(cfg, params["dec_layers"], x, positions,
+                           kv_cache=(cache["k"], cache["v"]), pos=pos,
+                           cross_kv=(cache["ck"], cache["cv"]))
+    else:
+        x, cache, _ = forward_core(cfg, params, x, positions, cache=cache, pos=pos)
     x = rms_norm(x, params["ln_final"], cfg.norm_eps)
     return _logits(cfg, params, x), cache

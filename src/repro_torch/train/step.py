@@ -26,7 +26,10 @@ def make_serve_step(cfg: ArchConfig):
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """(params, {"tokens": (B, S)}) -> (last logits, cache)."""
+    """(params, {"tokens": (B, S)[, "frames" | "vision_embeds"]}) -> (last
+    logits, cache); whisper's frames and qwen2-vl's vision embeddings go
+    through as given, and ``prefill`` casts them to bf16, as the reference's
+    does."""
     def prefill_step(params, batch):
         return M.prefill(cfg, cast_tree(params, torch.bfloat16), batch)
     return prefill_step

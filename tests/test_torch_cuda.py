@@ -68,6 +68,66 @@ def test_flash_attention_matches_plain_on_card(cuda_device, name, dtype):
     check_flash_case(name, FLASH_DTYPES[dtype], cuda_device)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xattn_sq1", "xattn_sq384"])
+def test_cross_attention_cases_take_their_routes(cuda_device, name):
+    """Whisper's cross attention shapes: decode on the split-KV route in every
+    dtype; a 384-query prompt on tensor cores (bf16, f16) and the FP32 kernel."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    routes = set()
+    for dtype in FLASH_DTYPES.values():
+        check_flash_case(name, dtype, cuda_device)
+        routes.add(flash_attention.last_route[0])
+    assert routes == ({"split_kv"} if name == "xattn_sq1" else {"tensor_core", "fp32"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "zamba2-1.2b", "xlstm-350m",
+                                  "whisper-medium", "qwen2-vl-2b"])
+def test_family_on_card_equals_cpu(cuda_device, name):
+    """Each family's ``reduced()`` prefill and one decode step on the card
+    (attention in the flash kernel) against the CPU (plain attention): logits
+    within the JAX suite's prefill-vs-decode tolerance, the same top-1 except
+    at a near tie (the CPU's score of the card's pick within atol of its
+    best)."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    cfg = get_arch(name).reduced()
+    B, S = 2, 96
+    rng = np.random.default_rng(0)
+    batch = {"tokens": TokenPipeline(cfg.vocab_size, B, S + 1, seed=0).batch_at(0)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((B, cfg.cross_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    pos = S + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        tree = _tree_to(params, dev)
+        pre, cache = M.prefill(cfg, tree, dict(batch, tokens=batch["tokens"][:, :S]))
+        dec, _ = M.decode_step(cfg, tree, M.grow_cache(cache, pos + 1),
+                               batch["tokens"][:, S:], pos)
+        out[str(dev)] = (pre.float().cpu(), dec.float().cpu())
+    assert (launch_counts()["flash_attention"] > 0) == (cfg.family != "ssm")
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0.15, atol=0.35)
+        pick = got.argmax(-1)
+        short = want.amax(-1) - want.gather(-1, pick[..., None])[..., 0]
+        assert bool((short[pick != want.argmax(-1)] <= 0.35).all()), short
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 # ---- the engine's filtered, mutated, cache-probe, graph and DP paths on the card ----
 #
 # Each is held against the same path on the CPU (the plain versions) and the

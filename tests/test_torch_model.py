@@ -11,6 +11,7 @@ rtol 0.15 / atol 0.35, tests/test_arch_smoke.py) and the top-1 token must
 be equal at every position compared. On the CPU, attention runs the dense
 path; the card's route (the flash kernel's wrapper, whose plain version
 runs here) is held against the reference's dense attention separately.
+The other five families: tests/test_torch_families.py.
 """
 import jax
 import jax.numpy as jnp
@@ -215,16 +216,6 @@ def test_cache_write_past_the_end_raises():
     cache = M.make_cache(cfg, B, 4, device="cpu")
     with pytest.raises(ValueError, match="runs past"):
         M.decode_step(cfg, params, cache, np.zeros((B, 1), np.int32), 4)
-
-
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "zamba2-1.2b", "xlstm-350m",
-                                  "whisper-medium", "qwen2-vl-2b"])
-def test_unported_families_raise(name):
-    cfg = get_arch(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.make_cache(cfg, 1, 8, device="cpu")
 
 
 def test_token_pipeline_is_the_references():

@@ -11,6 +11,7 @@ reference package, and keep its entry points on the card unless the caller
 asks for the CPU.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -52,7 +53,7 @@ from repro_torch.serve.engine import BatchEngine, cache_probe_scan
 from repro_torch.tenancy import MemoryGovernor, MultiTenantRuntime, Tenant, TenantColumnStores
 from repro_torch.configs.base import get_arch
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, make_cache
 
 ROOT = Path(__file__).resolve().parents[1]
 COLS = [("a", 32), ("b", 48), ("c", 24)]
@@ -332,6 +333,8 @@ ENTRY_POINTS = {
     "make_production_mesh": lambda db: make_production_mesh(),
     "BatchEngine(mesh)": lambda db: BatchEngine(db, mesh=make_debug_mesh()),
     "FlatIndex": lambda db: FlatIndex(db.columns[0]),
+    "init_params[moe]": lambda db: init_params(get_arch("granite-moe-1b-a400m").reduced()),
+    "make_cache[encdec]": lambda db: make_cache(get_arch("whisper-medium").reduced(), 1, 8),
 }
 
 
@@ -360,11 +363,13 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(name):
 
 
 def test_unported_paths_raise(dbs):
-    """A mesh that is not a ``launch.mesh.Mesh`` is refused; the families
-    beyond the dense one are not ported yet."""
+    """A mesh that is not a ``launch.mesh.Mesh`` is refused; every registered
+    family is ported, and a family the model builder does not know raises."""
     for call in (lambda: BatchEngine(dbs[0], mesh=object(), device="cpu"),
                  lambda: ColumnStore(dbs[0], mesh=object(), device="cpu")):
         with pytest.raises(TypeError):
             call()
-    with pytest.raises(NotImplementedError):
-        init_params(get_arch("granite-moe-1b-a400m").reduced(), seed=0, device="cpu")
+    init_params(get_arch("granite-moe-1b-a400m").reduced(), seed=0, device="cpu")
+    unknown = dataclasses.replace(get_arch("granite-moe-1b-a400m").reduced(), family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        init_params(unknown, seed=0, device="cpu")
