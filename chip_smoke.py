@@ -21,7 +21,13 @@ into ``build/kernels/``), then:
      the flash-attention grid (MHA, GQA, MQA, causal or not, window x
      softcap, d = 128 on a ragged S, Sq = 1, fully masked rows, long split
      decodes, tensor-core tiles; x f32/bf16/f16), which must run all three
-     flash routes (split_kv, tensor_core, fp32);
+     flash routes (split_kv, tensor_core, fp32); then the flash backward's
+     grid (phase ``flash_bwd_grid``: causal or not, window, softcap 50, GQA
+     groups 1 / 2 / 6, d = 32 / 64 / 128, Sq < Skv aligned to the end,
+     unmasked cross attention, ragged lengths, x f32/bf16/f16): the kernel
+     against ``attention_bwd_ref`` on the same inputs, the forward's lse
+     (every route) against ``attention_lse_ref``, two backward calls bit for
+     bit, and the serving forward bit for bit the lse-writing one's;
   3. MINT's main path at real scale: the paper's 8-column pool at 1,000,000
      rows, the bisimple workload (k = 100), ``Mint(index_kind="ivf")``
      tuned at theta_recall = 0.9 / 4 indexes, indexes built, the MINT and
@@ -145,6 +151,27 @@ into ``build/kernels/``), then:
   14. the same model path on the CPU and on the card at the six
      ``reduced()`` configs: logits within the same tolerance, the same
      top-1 tokens (for the five new families, up to a near tie).
+  15. training (phase ``train_path``): granite-moe-1b-a400m at its full
+     width and depth (24 layers, d_model 1024, 32 experts top-8, random f32
+     weights from a seed) through ``make_train_step`` for 8 steps of
+     8 x 2,048 ``TokenPipeline`` tokens, bf16 grads, remat, peak lr 1e-3:
+     finite losses and gnorms, a loss that falls after step 0 (lr 0), flash
+     forward launches 2 x 24 a step (remat) and backward launches 24; every
+     leaf's gradient finite and non-zero, each layer's wq / wk / wv / wo by
+     name; a profiled step (the device's busy share, the top kernels); at 2
+     layers of the same width one step's loss and gradients with the
+     kernels against the plain attention on the card (per-leaf relative L2
+     <= 0.05); then the backward kernel at that attention call held, timed
+     beside its plain version, an SDPA backward and its bound;
+  16. the fault-tolerant loop (phase ``train_loop``): ``train()`` at
+     granite-moe-1b-a400m ``reduced()`` (60 steps of 8 x 128, checkpoints
+     every 10), clean with no restart, then with a failure injected at step
+     30: one restart, the loss after the restore bit-equal to the clean
+     run's at that step, and a falling loss;
+  17. one training step of each family's ``reduced()`` config on the CPU and
+     on the card (phase ``train_cpu_vs_card``): loss, gnorm, lr and every
+     leaf's gradient within the bf16 bounds of
+     tests/test_torch_train_families.py.
 
 Any failure exits non-zero. The last three lines are the card's name and
 power limit, the kernel table and ``{"ok": true, "device": {...}}``.
@@ -3065,6 +3092,347 @@ def phase_model_cpu_vs_card() -> None:
                                 tie))
 
 
+# ---- training: the flash backward, the step at full width, the loop ---------------
+
+TRAIN_MODEL = "granite-moe-1b-a400m"  # the reference launcher's default arch
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_PEAK_LR = 8, 2048, 8, 1e-3
+TRAIN_BUDGET_S = 240.0  # the three training phases' share of the time limit
+# kernel vs plain attention on the card, one step's gradients at 2 layers of
+# the full width: per-leaf relative L2. The two differ in the rounding of the
+# attention output (the flash kernel takes P in bf16 for P.V) and in the
+# backward's summation order
+TRAIN_GRAD_REL_L2 = 0.05
+# one make_train_step of every family's reduced config on the card and the CPU
+TRAIN_FAMILIES = ("gemma2-27b", "granite-moe-1b-a400m", "zamba2-1.2b", "xlstm-350m",
+                  "whisper-medium", "qwen2-vl-2b")
+# tests/test_torch_train_families.py's bounds for the card against the CPU:
+# the loss at tests/test_torch_families.py's bf16 rtol / atol; per leaf, 0.05
+# relative L2, 0.25 for the MoE's router near ties and xLSTM's recurrent exp
+# gates in bf16
+TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL = 0.05, 0.1
+CPU_CARD_GRAD_REL_L2 = {"moe": 0.25, "ssm": 0.25}
+
+
+def leaf_names(tree) -> list[str]:
+    """The leaves' names in ``train.optimizer.tree_leaves`` order (the
+    checkpoint's: ``layers_attn_wq``)."""
+    from repro_torch.train.checkpoint import _leaf_paths
+    return [name for name, _ in _leaf_paths(tree)]
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+def phase_flash_bwd_grid(dev, errs: dict) -> None:
+    from repro_torch.kernels.flash_attention.kernel import ROUTES, flash_attention
+    from repro_torch.kernels.parity import FLASH_BWD_CASES, FLASH_DTYPES, check_flash_bwd_case
+    t0 = time.perf_counter()
+    routes = set()
+    for name in sorted(FLASH_BWD_CASES):
+        for label, dtype in FLASH_DTYPES.items():
+            res = check_flash_bwd_case(name, dtype, dev)
+            route = flash_attention.last_route[0]
+            routes.add(route)
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], res["max_abs_err"])
+            errs["flash_attention"] = max(errs["flash_attention"], res["out_max_abs_err"])
+            emit("flash_bwd_grid", case=name, dtype=label, forward_route=route,
+                 two_calls_bit_equal=True, serving_forward_bit_equal=True, **res)
+    check(routes == set(ROUTES), f"the backward grid's forwards ran routes {sorted(routes)}")
+    emit("flash_bwd_grid_done", seconds=time.perf_counter() - t0)
+
+
+def phase_train_path(dev, peaks) -> dict:
+    """granite-moe-1b-a400m at full width and depth: TRAIN_STEPS steps of
+    make_train_step on TokenPipeline batches of TRAIN_B x TRAIN_S tokens,
+    bf16 grads, remat; then every leaf's gradient, a profiled step, and one
+    step's gradients at 2 layers against the plain attention on the card."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainConfig, batch_at
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left < 1 << 30, f"{left} bytes still allocated before training")
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_MODEL)
+    check(cfg.remat, f"{cfg.name} trains with remat")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    n_params, active = M.param_count(params), M.active_param_count(cfg, params)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_B, seq_len=TRAIN_S, peak_lr=TRAIN_PEAK_LR,
+                       device=str(dev))
+    pipeline = TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=tcfg.seed)
+    step = make_train_step(cfg, bf16_grads=True, peak_lr=TRAIN_PEAK_LR, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    emit("train_init", model=cfg.name, source=cfg.source, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+         experts=cfg.n_experts, top_k=cfg.moe_top_k, vocab=cfg.vocab_size,
+         param_count=n_params, active_param_count=active, batch=TRAIN_B, seq_len=TRAIN_S,
+         bf16_grads=True, remat=cfg.remat, peak_lr=TRAIN_PEAK_LR,
+         seconds=time.perf_counter() - t0)
+    losses, gnorms, lrs, step_ms = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(cfg, tcfg, pipeline, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        lrs.append(float(m["lr"]))
+        emit("train_step", step=i, loss=losses[-1], gnorm=gnorms[-1], lr=lrs[-1],
+             ms=step_ms[-1])
+    counts = launch_counts()
+    fwd_routes = dict(flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + gnorms), f"losses {losses}, gnorms {gnorms}")
+    check(lrs[0] == 0.0 and all(x > 0 for x in lrs[1:]), f"lrs {lrs}")
+    check(losses[-1] < losses[1], f"the loss did not fall: {losses}")
+    L = cfg.n_layers
+    check(counts["flash_attention"] == 2 * L * TRAIN_STEPS,
+          f"{counts['flash_attention']} flash forward launches in {TRAIN_STEPS} steps "
+          f"(remat: 2 x {L} a step)")
+    check(counts["flash_attention_bwd"] == L * TRAIN_STEPS,
+          f"{counts['flash_attention_bwd']} flash backward launches in {TRAIN_STEPS} steps")
+    # every leaf's gradient at the trained params, on the next batch
+    batch = batch_at(cfg, tcfg, pipeline, TRAIN_STEPS, dev)
+    _, grads = loss_and_grads(cfg, params, batch)
+    names = leaf_names(params)
+    for name, g in zip(names, grads):
+        check(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
+              f"gradient of {name} is not finite or all zero")
+    per_layer = {}
+    for w in ("wq", "wk", "wv", "wo"):
+        g = grads[names.index(f"layers_attn_{w}")]
+        norms = [g[i].float().norm().item() for i in range(L)]
+        check(all(math.isfinite(x) and x > 0 for x in norms),
+              f"layer gradients of {w}: {norms}")
+        per_layer[w] = norms
+    del grads
+    profile = decode_profile(lambda: step(params, opt, batch))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = TRAIN_B * TRAIN_S
+    steady_ms = statistics.median(step_ms[1:])
+    attn_flops = 3 * 4.0 * TRAIN_B * cfg.n_heads * cfg.hd * kept_pairs(TRAIN_S, TRAIN_S, True, 0) * L
+    flops = 6.0 * active * tokens + attn_flops
+    fields = dict(model=cfg.name, steps=TRAIN_STEPS, losses=losses, gnorms=gnorms, lrs=lrs,
+                  step_ms=step_ms, steady_step_ms=steady_ms,
+                  tokens_per_s=tokens / (steady_ms / 1e3), flops_per_step=flops,
+                  bf16_peak_share=flops / (steady_ms / 1e3) / peaks["bf16"],
+                  flash_forward_launches=counts["flash_attention"],
+                  flash_backward_launches=counts["flash_attention_bwd"],
+                  flash_forward_routes=fwd_routes,
+                  max_memory_allocated_bytes=peak, attn_grad_norms_by_layer=per_layer,
+                  train_step_profile=profile)
+
+    # 2 layers of the same width: one step's loss and gradients with the
+    # kernels against the same with the plain attention (dense, autograd)
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = M.init_params(cfg2, seed=1, device=dev)
+    batch = batch_at(cfg2, tcfg, pipeline, 0, dev)
+    loss_k, g_k = loss_and_grads(cfg2, p2, batch)
+    flash = A.attention
+    A.attention = A.dense_attention
+    try:
+        loss_p, g_p = loss_and_grads(cfg2, p2, batch)
+    finally:
+        A.attention = flash
+    errs2 = {}
+    for name, a, b in zip(leaf_names(p2), g_k, g_p):
+        errs2[name] = rel_l2(a, b)
+        check(errs2[name] <= TRAIN_GRAD_REL_L2, f"2-layer {name}: kernel vs plain attention "
+              f"gradient rel L2 {errs2[name]:.3g} > {TRAIN_GRAD_REL_L2}")
+    check(abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_ATOL
+          + TRAIN_LOSS_RTOL * abs(loss_p.item()),
+          f"2-layer loss {loss_k.item()} vs plain attention {loss_p.item()}")
+    del p2, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_path", **fields, two_layer=dict(loss_kernel=loss_k.item(),
+                                                  loss_plain=loss_p.item(),
+                                                  grad_rel_l2=errs2,
+                                                  bound=TRAIN_GRAD_REL_L2),
+         seconds=time.perf_counter() - t_phase)
+    return dict(fields, bwd_launches=counts["flash_attention_bwd"])
+
+
+def phase_train_kernel_time(train: dict, dev, peaks, errs: dict) -> list[dict]:
+    """The backward kernel at the training path's attention call (granite:
+    q (8, 16, 2048, 64) in the model's strided layout, kv 8 heads, causal,
+    bf16): held against its plain version, timed beside it, beside the
+    backward of one SDPA call of the same function, and bounded."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.parity import check_flash_bwd, check_grad
+    cfg = get_arch(TRAIN_MODEL)
+    B, S, Hq, Hkv, d = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def heads(h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
+        return torch.randn((B, S, h, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v = heads(Hq), heads(Hkv), heads(Hkv)
+    dout = torch.randn((B, Hq, S, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    res = check_flash_bwd(q, k, v, dout, dict(causal=True, window=0, softcap=0.0),
+                          "flash bwd at the granite training call")
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], res["max_abs_err"])
+    out, lse = flash_attention_lse(q, k, v)
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
+    plain = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout), reps=3, warmup=1)
+    # the library yardstick: the backward of one SDPA call (GQA, causal; the
+    # call has no window or softcap, so SDPA computes the same function),
+    # held to the plain gradients like the kernel
+    try:
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        lib_grads = torch.autograd.grad(o, (qg, kg, vg), dout, retain_graph=True)
+        want = attention_bwd_ref(q, k, v, out, lse, dout)
+        lib_err = max(check_grad(a, b, torch.bfloat16, "sdpa backward")
+                      for a, b in zip(lib_grads, want))
+        del want, lib_grads
+        library = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout,
+                                                      retain_graph=True))
+        lib_note = None
+    except Exception as exc:  # reported in the line; the port does not use it
+        library, lib_err, lib_note = None, None, f"{type(exc).__name__}: {exc}"[:300]
+    pairs = kept_pairs(S, S, True, 0)
+    fwd_flops = 4.0 * B * Hq * d * pairs
+    # q, k, v, out, dout and lse read once; dq, dk, dv written once
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel()
+                  + dout.numel()) + 4 * lse.numel()
+    b = bound(nbytes, 2.5 * fwd_flops, peaks, rate="bf16")
+    steps = train["steps"]
+    return [table_row("flash_attention_bwd", "cuda", "src/repro_torch/csrc/flash_bwd.cu",
+                      "src/repro/models/attention.py:133", train["bwd_launches"],
+                      errs["flash_attention_bwd"], ms, plain, library, b,
+                      shape=[B, Hq, Hkv, S, S, d], call="granite training (causal, bf16)",
+                      launches_per_step=train["bwd_launches"] // steps,
+                      max_abs_err_at_call=res["max_abs_err"], grad_max_abs=res["grad_max_abs"],
+                      replaces_note="no TPU kernel: the reference differentiates "
+                                    "dense_attention through XLA (jax.vjp)",
+                      library="sdpa backward (enable_gqa, is_causal)",
+                      library_max_abs_err=lib_err, library_failed=lib_note,
+                      kept_pairs=pairs, flops_bound=2.5 * fwd_flops, bytes=nbytes,
+                      achieved_tflops_bound_flops=2.5 * fwd_flops / ms / 1e9)]
+
+
+def phase_train_loop(dev) -> None:
+    """``train()`` at granite-moe-1b-a400m ``reduced()`` with the reference
+    example's settings, clean and with one failure injected at step 30."""
+    import shutil
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.loop import TrainConfig, train
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_MODEL).reduced()
+    root = ROOT / "build" / "train_loop"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=60, batch=8, seq_len=128, ckpt_every=10, peak_lr=1e-3, device=str(dev))
+    reset_launch_counts()
+    clean = train(cfg, TrainConfig(ckpt_dir=str(root / "clean"), **kw))
+    counts = launch_counts()
+    # a kernel failure must not hide behind the loop's catch-all retry
+    check(clean.restarts == 0 and clean.final_step == 60,
+          f"clean run: {clean.restarts} restarts, final step {clean.final_step}")
+    check(counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0,
+          f"the loop's launches {counts}")
+    tripped = []
+
+    def fail_at_30(step):
+        if step == 30 and not tripped:
+            tripped.append(step)
+            return True
+        return False
+
+    failed = train(cfg, TrainConfig(ckpt_dir=str(root / "failed"), **kw),
+                   fail_injector=fail_at_30)
+    shutil.rmtree(root, ignore_errors=True)
+    check(failed.restarts == 1 and failed.final_step == 60,
+          f"failed run: {failed.restarts} restarts, final step {failed.final_step}")
+    # the checkpoint of step 30 restored: the run goes on at step 30
+    check(failed.losses[30] == clean.losses[30],
+          f"loss after the restore {failed.losses[30]!r} != the clean run's "
+          f"{clean.losses[30]!r}")
+    check(failed.losses[-1] < failed.losses[0], f"losses {failed.losses[0]} -> "
+          f"{failed.losses[-1]}")
+    emit("train_loop", model=cfg.name, steps=60, batch=8, seq_len=128, ckpt_every=10,
+         clean_restarts=clean.restarts, failed_restarts=failed.restarts,
+         loss_after_restore=failed.losses[30], clean_loss_at_30=clean.losses[30],
+         all_losses_bit_equal=failed.losses == clean.losses,
+         first_loss=failed.losses[0], last_loss=failed.losses[-1],
+         flash_launches=counts["flash_attention"],
+         flash_bwd_launches=counts["flash_attention_bwd"],
+         seconds=time.perf_counter() - t0)
+
+
+def phase_train_cpu_vs_card() -> None:
+    """One make_train_step of each family's ``reduced()`` config on the card
+    and on the CPU from the same weights and AdamW state: loss within the
+    bf16 tolerance, gnorm within 5%, the same lr, every leaf's gradient
+    within ``CPU_CARD_GRAD_REL_L2``; on the card every flash forward has its
+    backward."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    t0 = time.perf_counter()
+    B, S = 2, 96
+    for name in TRAIN_FAMILIES:
+        cfg = get_arch(name).reduced()
+        batch = prompt_of(family_batch(cfg, B, S, seed=0, device="cpu"), S)
+        params = M.init_params(cfg, seed=0, device="cpu")
+        step = make_train_step(cfg, peak_lr=1e-3, total_steps=100)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tree = _tree_to(params, dev)
+            st = adamw_init(tree)
+            reset_launch_counts()
+            _, grads = loss_and_grads(cfg, tree, batch)
+            _, _, m = step(tree, st._replace(step=st.step + 5), batch)
+            out[dev] = ({k: float(v) for k, v in m.items()}, [g.float().cpu() for g in grads],
+                        launch_counts())
+        (mc, g_cpu, _), (mg, g_card, counts) = out["cpu"], out["cuda"]
+        check(abs(mg["loss"] - mc["loss"]) <= TRAIN_LOSS_ATOL + TRAIN_LOSS_RTOL * abs(mc["loss"]),
+              f"{name}: card loss {mg['loss']} vs CPU {mc['loss']}")
+        check(abs(mg["gnorm"] - mc["gnorm"]) <= 0.05 * mc["gnorm"],
+              f"{name}: card gnorm {mg['gnorm']} vs CPU {mc['gnorm']}")
+        check(mg["lr"] == mc["lr"], f"{name}: lr {mg['lr']} vs {mc['lr']}")
+        bound_ = CPU_CARD_GRAD_REL_L2.get(cfg.family, 0.05)
+        errs = {n: rel_l2(a, b) for n, a, b in zip(leaf_names(params), g_card, g_cpu)}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= bound_, f"{name}: {worst} gradient rel L2 {errs[worst]:.3g} "
+              f"> {bound_}")
+        if cfg.family == "ssm":
+            check(counts["flash_attention"] == 0, f"{name}: flash launched {counts}")
+        else:
+            check(counts["flash_attention"] > 0
+                  and counts["flash_attention_bwd"] == counts["flash_attention"],
+                  f"{name}: launches {counts}")
+        emit("train_cpu_vs_card", model=cfg.name, family=cfg.family, layers=cfg.n_layers,
+             batch=B, seq_len=S, card=mg, cpu=mc, grad_rel_l2_worst=[worst, errs[worst]],
+             grad_bound=bound_, launches=counts)
+    emit("train_cpu_vs_card_done", seconds=time.perf_counter() - t0)
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -3110,10 +3478,11 @@ def main() -> int:
                                     "flash")))
     peaks = card_peaks(card)
     errs = {"streaming_fused_scan": 0.0, "batched_scores": 0.0, "topk_scores": 0.0,
-            "flash_attention": 0.0}
+            "flash_attention": 0.0, "flash_attention_bwd": 0.0}
     try:
         phase_kernel_grid(dev, errs)
         phase_flash_grid(dev, errs)
+        phase_flash_bwd_grid(dev, errs)
         if args.rows != 1_000_000:
             emit("scale_cut", rows=args.rows, paper_rows=1_000_000)
         main_path = phase_main_path(args.rows, dev)
@@ -3157,6 +3526,13 @@ def main() -> int:
         rows += phase_family_flash_times(families, peaks, errs)
         del families
         phase_model_cpu_vs_card()
+        t_train = time.perf_counter()
+        train = phase_train_path(dev, peaks)
+        rows += phase_train_kernel_time(train, dev, peaks, errs)
+        phase_train_loop(dev)
+        phase_train_cpu_vs_card()
+        emit("train_phases_done", seconds=time.perf_counter() - t_train,
+             budget_s=TRAIN_BUDGET_S)
     except (SmokeFailure, ParityError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

@@ -25,6 +25,7 @@ from repro_torch.index.registry import IndexStore
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.ssm import SSMCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
+from repro_torch.train.optimizer import AdamWState
 
 
 def ivf_from_arrays(data: np.ndarray, centroids: np.ndarray, row_ids: np.ndarray,
@@ -134,6 +135,17 @@ def model_params_from_jax(params: dict, device=None) -> dict:
     if isinstance(params, dict):
         return {k: model_params_from_jax(v, device) for k, v in params.items()}
     return _tensor(params, device)
+
+
+def adamw_state_from_jax(state, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the reference's (``step``, ``m``, ``v``
+    fields, every leaf a numpy array: ``jax.tree.map(np.asarray, state)``),
+    on ``device`` (None: the card): the same step and float32 moments, so
+    both packages take a training step from the same state."""
+    device = resolve_device(device)
+    return AdamWState(step=_tensor(state.step, device),
+                      m=model_params_from_jax(state.m, device),
+                      v=model_params_from_jax(state.v, device))
 
 
 def model_cache_from_jax(cache: dict, device=None) -> dict:

@@ -15,7 +15,9 @@ enum { ROUTE_SPLIT_KV = 0, ROUTE_TENSOR_CORE = 1, ROUTE_FP32 = 2 };
 // sequence) axes; the head dim is contiguous. out is (B, Hq, Sq, d),
 // contiguous. A kv position is kept if it is < Skv, <= the q position under
 // `causal` and > the q position - window when window > 0; q row i sits at
-// position Skv - Sq + i.
+// position Skv - Sq + i. lse, when not null, is (B, Hq, Sq) float32: each
+// row's natural-log sum of exp over its kept scores (what the backward,
+// flash_bwd.cu, recomputes P from), MINT_NEG_INF for a row with none.
 struct FlashArgs {
   const void* q;
   const void* k;
@@ -25,7 +27,14 @@ struct FlashArgs {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int causal, window;
   float softcap, scale;
+  float* lse;
 };
+
+// A row's lse from its running max m (in the units of `ln_unit`: 1 for
+// natural-log scores, ln 2 for log2 ones) and its sum l of exp(s - m).
+__device__ __forceinline__ float row_lse(float m, float l, float ln_unit) {
+  return m == MINT_NEG_INF ? MINT_NEG_INF : m * ln_unit + logf(fmaxf(l, 1e-30f));
+}
 
 // The split-KV plan of kernels/flash_attention/kernel.py:split_plan: the
 // kept kv range [kv_begin, kv_end) cut into n_splits runs of `chunk` keys,
@@ -64,6 +73,36 @@ __device__ __forceinline__ void unpack(uint4 r, float* f, const __half*) {
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
     f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+  }
+}
+
+// Rows 0..63 of a (rows, D) operand (the float32 route's and the backward's
+// tiles; THREADS threads share the copy) whose row r starts at src + r * stride,
+// zero from row `valid` on, into dst[r * LD + c] as float32. Each thread
+// first issues all of its 16-byte loads, then converts and stores, so a
+// tile pays the load latency once.
+template <typename T, int D, int LD, int THREADS>
+__device__ __forceinline__ void stage_tile_f32(const T* __restrict__ src, long long stride,
+                                               int valid, float* __restrict__ dst) {
+  constexpr int VEC = 16 / sizeof(T), CHUNKS = D / VEC;
+  constexpr int PER = 64 * CHUNKS / THREADS;
+  static_assert(PER * THREADS == 64 * CHUNKS && VEC % 4 == 0, "tile split");
+  uint4 raw[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * THREADS, r = e / CHUNKS, c = (e % CHUNKS) * VEC;
+    raw[u] = r < valid ? __ldg(reinterpret_cast<const uint4*>(src + r * stride + c))
+                       : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * THREADS, r = e / CHUNKS, c = (e % CHUNKS) * VEC;
+    float f[VEC];
+    unpack(raw[u], f, static_cast<const T*>(nullptr));
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      *reinterpret_cast<float4*>(dst + r * LD + c + i) =
+          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
   }
 }
 

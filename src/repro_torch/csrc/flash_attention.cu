@@ -63,35 +63,6 @@ __host__ __device__ constexpr int smem_floats() {
   return BQ * tile_ld<D>() + kp + BKV * D;
 }
 
-// Rows 0..63 of a (rows, D) operand whose row r starts at src + r * stride,
-// zero from row `valid` on, into dst[r * LD + c] as float32. Each thread
-// first issues all of its 16-byte loads, then converts and stores, so a
-// tile pays the load latency once.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, long long stride,
-                                           int valid, float* __restrict__ dst) {
-  constexpr int VEC = 16 / sizeof(T), CHUNKS = D / VEC;
-  constexpr int PER = 64 * CHUNKS / THREADS;
-  static_assert(PER * THREADS == 64 * CHUNKS && VEC % 4 == 0, "tile split");
-  uint4 raw[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int e = threadIdx.x + u * THREADS, r = e / CHUNKS, c = (e % CHUNKS) * VEC;
-    raw[u] = r < valid ? __ldg(reinterpret_cast<const uint4*>(src + r * stride + c))
-                       : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int e = threadIdx.x + u * THREADS, r = e / CHUNKS, c = (e % CHUNKS) * VEC;
-    float f[VEC];
-    unpack(raw[u], f, static_cast<const T*>(nullptr));
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(dst + r * LD + c + i) =
-          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -99,7 +70,7 @@ flash_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                  long long v_sh, long long v_ss, int causal, int window,
-                 float softcap, float scale) {
+                 float softcap, float scale, float* __restrict__ lse) {
   constexpr int LD = tile_ld<D>();
   constexpr int NO = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -113,7 +84,7 @@ flash_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / group;
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
-  stage_rows<T, D, LD>(q + b * q_sb + h * q_sh + q0 * q_ss, q_ss, Sq - q0, Qs);
+  stage_tile_f32<T, D, LD, THREADS>(q + b * q_sb + h * q_sh + q0 * q_ss, q_ss, Sq - q0, Qs);
 
   // positions of this tile's rows and the kv range any of them can keep
   const int shift = Skv - Sq;
@@ -135,8 +106,8 @@ flash_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = (kv_begin / BKV) * BKV; j0 < kv_end; j0 += BKV) {
     __syncthreads();  // the previous tile's P and V are no longer read
-    stage_rows<T, D, LD>(kb + j0 * k_ss, k_ss, Skv - j0, Ks);
-    stage_rows<T, D, D>(vb + j0 * v_ss, v_ss, Skv - j0, Vs);
+    stage_tile_f32<T, D, LD, THREADS>(kb + j0 * k_ss, k_ss, Skv - j0, Ks);
+    stage_tile_f32<T, D, D, THREADS>(vb + j0 * v_ss, v_ss, Skv - j0, Vs);
     __syncthreads();
 
     // s = q . k over d in index order, four d at a time from float4 reads
@@ -230,6 +201,7 @@ flash_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    if (lse && tx == 0) lse[((long long)b * Hq + h) * Sq + r] = row_lse(m[i], l[i], 1.f);
     T* o = out + (((long long)b * Hq + h) * Sq + r) * D;
 #pragma unroll
     for (int j = 0; j < NO; ++j) store_as(o + tx + 16 * j, acc[i][j] / li);
@@ -246,7 +218,7 @@ cudaError_t launch_fp32(const FlashArgs& a, cudaStream_t s) {
   flash_fp32_kernel<T, D><<<grid, THREADS, bytes, s>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.Hq, a.Hq / a.Hkv, a.Sq,
       a.Skv, a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss, a.v_sb, a.v_sh, a.v_ss,
-      a.causal, a.window, a.softcap, a.scale);
+      a.causal, a.window, a.softcap, a.scale, a.lse);
   return cudaGetLastError();
 }
 
@@ -273,17 +245,20 @@ extern "C" int mint_flash_route(int Sq, int group, int dtype) {
 // Strides are in elements, for the (batch, head, sequence) axes of q, k and
 // v; the head axis of each is contiguous (stride 1). Every pointer is 16-byte
 // aligned and every stride a multiple of 16 bytes (the wrapper checks).
-// out is contiguous. The split plan (kv_begin, kv_end, chunk, n_splits) and
-// its f32 scratch are read on the split-KV route only.
+// out is contiguous. lse may be null (serving); when not, every route writes
+// it. The split plan (kv_begin, kv_end, chunk, n_splits) and its f32 scratch
+// are read on the split-KV route only.
 extern "C" int mint_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
+    const void* q, const void* k, const void* v, void* out, void* lse, int B, int Hq,
+    int Hkv,
     int Sq, int Skv, int d, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, int causal, int window, float softcap, float scale, int dtype,
     int kv_begin, int kv_end, int chunk, int n_splits, void* part_m, void* part_l,
     void* part_acc, void* stream) {
   const FlashArgs a = {q, k, v, out, B, Hq, Hkv, Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh,
-                       k_ss, v_sb, v_sh, v_ss, causal, window, softcap, scale};
+                       k_ss, v_sb, v_sh, v_ss, causal, window, softcap, scale,
+                       (float*)lse};
   const SplitPlan plan = {kv_begin, kv_end, chunk, n_splits, (float*)part_m,
                           (float*)part_l, (float*)part_acc};
   cudaStream_t s = (cudaStream_t)stream;

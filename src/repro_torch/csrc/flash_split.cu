@@ -244,6 +244,7 @@ __global__ void combine_kernel(const FlashArgs a, const SplitPlan pl, int d) {
     O += pl.part_acc[at * d + c] * w;
   }
   store_as(static_cast<T*>(a.out) + tid, O / fmaxf(L, 1e-30f));
+  if (a.lse && c == 0) a.lse[row] = row_lse(M, L, 1.f);
 }
 
 template <typename T, int D, int RR>

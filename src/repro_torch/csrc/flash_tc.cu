@@ -33,7 +33,7 @@
 namespace {
 
 constexpr int BQ = 64, BKV = 64, WARPS = BQ / 16, THREADS = WARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
 struct TcLayout {
@@ -263,6 +263,9 @@ __global__ void __launch_bounds__(THREADS, 2) tc_kernel(const FlashArgs a) {
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = i == 0 ? ra : rb;
+    if (a.lse && t == 0 && r < a.Sq)  // m is in log2 units here
+      a.lse[((long long)b * a.Hq + h) * a.Sq + r] = row_lse(m[i], l[i], LN2);
     l[i] = 1.f / fmaxf(l[i], 1e-30f);
   }
   T* ob = static_cast<T*>(a.out) + ((long long)b * a.Hq + h) * a.Sq * D;

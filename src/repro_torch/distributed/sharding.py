@@ -9,8 +9,9 @@ reference replicates each shard over them, which changes no result).
 ``shard_act`` mirrors the reference's entry point for models: outside a
 mesh (``use_mesh``) it is the identity. Inside one it raises, because model
 sharding (``PARAM_RULES``, ``param_shardings``, ``cache_shardings``,
-sequence parallelism, ``elastic.py``, the activation layouts) is ported
-with training (ROADMAP.md, Queue 1 item 6).
+sequence parallelism, ``elastic.py``, ``zero1_shardings``, the activation
+layouts) is a slice of its own (ROADMAP.md, Queue 1 item 6b: model
+sharding); training runs on one card.
 """
 from __future__ import annotations
 
@@ -44,8 +45,9 @@ def shard_act(x: torch.Tensor, layout: str) -> torch.Tensor:
     if current_mesh() is None:
         return x
     raise NotImplementedError(
-        "model sharding inside a mesh is ported with training (ROADMAP.md, "
-        "Queue 1 item 6); serving shards database rows only (row_sharding)")
+        "model sharding inside a mesh is not ported yet (ROADMAP.md, Queue 1 item 6b: "
+        "model sharding); serving shards database rows only (row_sharding) and "
+        "training runs on one card")
 
 
 def _round_up(n: int, multiple: int) -> int:

@@ -200,8 +200,10 @@ _SIGNATURES = {
     "mint_batched_scores": [_P] * 5 + [_I] * 9 + [_P],
     "mint_topk_scores": [_P] + [_I] * 11 + [_P] * 5,
     "mint_streaming_scan": [_P] * 10 + [_I] * 21 + [_P] * 5,
-    "mint_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _F, _I]
+    "mint_flash_attention": [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _F, _I]
                             + [_I] * 4 + [_P] * 4,
+    "mint_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 18
+                                + [_I, _I, _F, _F, _I, _P],
     "mint_flash_route": [_I, _I, _I],
 }
 

@@ -1,9 +1,12 @@
 """Flash-attention kernel wrapper: q (B, Hq, Sq, d), k / v (B, Hkv, Skv, d)
--> (B, Hq, Sq, d).
+-> (B, Hq, Sq, d), and its gradient.
 
 On a CUDA tensor it launches ``csrc/flash_attention.cu`` (the port of
 ``repro/kernels/flash_attention/kernel.py:_flash_kernel``); on a CPU tensor
-it computes the plain version in ``ref.py``. The C entry point picks one of
+it computes the plain version in ``ref.py``. Under autograd the call goes
+through ``FlashAttentionFn``: the forward also writes each row's lse, and
+the backward launches ``csrc/flash_bwd.cu`` (on the CPU:
+``attention_bwd_ref``). The C entry point picks one of
 three routes by shape and dtype (``mint_flash_route``): split-KV decode
 when Sq x group <= 64, tensor cores for bf16 / f16 beyond that, the FP32
 kernel for float32. The wrapper plans the split-KV route's splits here
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch.kernels.common import (DTYPE_CODES, H100_SMS, cdiv, check_launch,
                                         load_library, ptr, stream_ptr)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 
 HEAD_DIMS = (32, 64, 128)
 ROUTES = ("split_kv", "tensor_core", "fp32")  # mint_flash_route's codes
@@ -68,16 +72,7 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"16-byte vectors (strides {t.stride()})")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    scale: float | None = None) -> torch.Tensor:
-    """Attention forward with GQA (query head h reads KV head
-    h // (Hq // Hkv)), q aligned to the end of the kv sequence, a sliding
-    ``window`` (> 0 keeps kv positions > q position - window) and a tanh
-    ``softcap``; scale defaults to d^-0.5. Output in q's dtype. q, k and v
-    may be strided views (e.g. (B, S, H, d) transposed) as long as the head
-    dim is contiguous; on the card they start on 16 bytes, their other
-    strides are whole 16-byte vectors, and d is 32, 64 or 128."""
+def _check_shapes(q, k, v) -> None:
     B, Hq, Sq, d = q.shape
     Bk, Hkv, Skv, dk = k.shape
     if (Bk, dk) != (B, d) or v.shape != k.shape:
@@ -85,17 +80,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} do not match")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} kv heads")
-    scale_f = float(d ** -0.5 if scale is None else scale)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap, scale=scale_f)
+
+
+def _check_card(d: int, named) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q)
+    like = named[0][1]
+    for name, t in named:
+        _check_operand(name, t, like)
+
+
+def _forward(q, k, v, causal: bool, window: int, softcap: float, scale: float,
+             with_lse: bool):
+    """One launch of the forward on the card: (out, lse or None). ``lse``
+    (B, Hq, Sq) float32 is the natural-log sum of exp of each row's kept
+    scores, written by every route when asked (NEG_INF for a row with no
+    kept key); without it the launch is the serving one."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    _check_card(d, (("q", q), ("k", k), ("v", v)))
     out = torch.empty((B, Hq, Sq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = load_library()
     route = ROUTES[lib.mint_flash_route(Sq, Hq // Hkv, DTYPE_CODES[q.dtype])]
     plan, parts = SplitPlan(0, 0, 0, 0), (None, None, None)
@@ -107,16 +115,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  torch.empty(rows, dtype=torch.float32, device=q.device),
                  torch.empty(rows * d, dtype=torch.float32, device=q.device))
     err = lib.mint_flash_attention(
-        ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Sq, Skv, d,
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), B, Hq, Hkv, Sq, Skv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), int(window), float(softcap), scale_f, DTYPE_CODES[q.dtype],
+        int(causal), int(window), float(softcap), scale, DTYPE_CODES[q.dtype],
         plan.kv_begin, plan.kv_end, plan.chunk, plan.n_splits, *map(ptr, parts),
         stream_ptr(q.device))
     check_launch(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     flash_attention.last_route = (route, plan.n_splits)
-    return out
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: the forward is the flash kernel writing the
+    rows' lse beside the output, the backward the hand-written backward
+    kernel (``flash_attention_bwd``); on CPU tensors their plain versions
+    (``attention_lse_ref``, ``attention_bwd_ref``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float, scale: float):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0, softcap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention forward with GQA (query head h reads KV head
+    h // (Hq // Hkv)), q aligned to the end of the kv sequence, a sliding
+    ``window`` (> 0 keeps kv positions > q position - window) and a tanh
+    ``softcap``; scale defaults to d^-0.5. Output in q's dtype. q, k and v
+    may be strided views (e.g. (B, S, H, d) transposed) as long as the head
+    dim is contiguous; on the card they start on 16 bytes, their other
+    strides are whole 16-byte vectors, and d is 32, 64 or 128. When grad
+    mode is on and q, k or v requires grad, the call goes through
+    ``FlashAttentionFn`` (the backward kernel gives their gradients)."""
+    _check_shapes(q, k, v)
+    scale_f = float(q.shape[3] ** -0.5 if scale is None else scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, int(window), float(softcap),
+                                      scale_f)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale_f)
+    return _forward(q, k, v, causal, window, softcap, scale_f, with_lse=False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        scale: float | None = None):
+    """``flash_attention``'s output and each row's lse (B, Hq, Sq) float32,
+    as the backward needs them: one launch of the kernel with its lse
+    output on the card, ``attention_lse_ref`` on the CPU. No gradient."""
+    _check_shapes(q, k, v)
+    scale_f = float(q.shape[3] ** -0.5 if scale is None else scale)
+    if q.device.type == "cpu":
+        return attention_lse_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                 scale=scale_f)
+    return _forward(q, k, v, causal, window, softcap, scale_f, with_lse=True)
 
 
 flash_attention.launches = 0
@@ -124,3 +190,52 @@ flash_attention.launches = 0
 # of the latest launch
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention.last_route = None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        scale: float | None = None):
+    """(dq, dk, dv) of ``flash_attention``'s output given ``dout``, from the
+    forward's ``out`` and ``lse``; grads in the inputs' dtypes and layouts.
+    On the card it launches ``csrc/flash_bwd.cu`` (a pre-pass for
+    D = rowsum(dout * out), a dK / dV kernel and a dQ kernel, no atomics:
+    two calls on the same inputs give the same bits); on CPU tensors it
+    computes ``attention_bwd_ref``."""
+    _check_shapes(q, k, v)
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale_f = float(d ** -0.5 if scale is None else scale)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
+                                 softcap=softcap, scale=scale_f)
+    # autograd may hand dout over in any layout: the kernel reads it, like
+    # out, as contiguous rows of 16-byte vectors
+    dout = dout.to(q.dtype).contiguous()
+    out = out.contiguous()
+    _check_card(d, (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 {(B, Hq, Sq)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    err = lib.mint_flash_attention_bwd(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(dq), ptr(dk),
+        ptr(dv), ptr(delta), B, Hq, Hkv, Sq, Skv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        int(causal), int(window), float(softcap), scale_f, DTYPE_CODES[q.dtype],
+        stream_ptr(q.device))
+    check_launch(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[BWD_ROUTE] += 1
+    flash_attention_bwd.last_route = BWD_ROUTE
+    return dq, dk, dv
+
+
+BWD_ROUTE = "ffma"  # the backward's one route: FP32 FMA tiles for every dtype
+flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = {BWD_ROUTE: 0}
+flash_attention_bwd.last_route = None

@@ -17,6 +17,18 @@ causality masks entirely, cases for each of the kernel's routes and
 cross attention's unmasked Sq < Skv), each
 run in float32, bf16 and f16, and the JAX tests' own rule: the output within
 rtol = atol = 2e-3 of the plain version in float32, 5e-2 in bf16 and f16.
+
+The flash backward has its grid too (``FLASH_BWD_CASES``: causal or not,
+window, softcap 50, GQA groups 1, 2 and 6, d = 32 / 64 / 128, Sq < Skv
+aligned to the end, unmasked cross attention, lengths that are not a
+multiple of the 64-row tile, and a small Sq whose forward takes the
+split-KV route), held on the same (q, k, v, out, lse, dout) to
+``attention_bwd_ref``: each gradient's max abs error within
+``FLASH_BWD_TOL`` x its plain max |grad| (2e-2 in bf16 and f16, whose
+gradients are rounded once to 8 or 11 bits; 1e-4 in float32, another
+summation order). The forward's lse is held to ``attention_lse_ref`` at the
+forward's rule for the input dtype, two backward calls must give the same
+bits, and the serving forward (no lse) the lse-writing one's bits.
 """
 from __future__ import annotations
 
@@ -29,8 +41,10 @@ from repro_torch.kernels.common import NEG_INF, neg_inf_for, pad_to
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ops import fused_scan
 from repro_torch.kernels.distance.ref import batched_scores_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import (flash_attention, flash_attention_bwd,
+                                                        flash_attention_lse)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.streaming.ops import streaming_fused_scan
 from repro_torch.kernels.streaming.ref import _masked_scores, streaming_fused_scan_ref
 from repro_torch.kernels.topk.kernel import topk_scores
@@ -366,3 +380,88 @@ def check_flash_case(name: str, dtype, device) -> float:
     kw = flash_kwargs(name)
     return check_flash(flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw),
                        f"flash {name}/{str(dtype).removeprefix('torch.')}")
+
+
+# ---- flash attention backward ---------------------------------------------------
+
+FLASH_BWD_CASES = {
+    "causal_g1_d32": _flash(1, 2, 2, 96, 96, 32),
+    "full_g2_d64": _flash(2, 4, 2, 80, 80, 64, causal=False),
+    "window_g2_d64": _flash(1, 4, 2, 130, 130, 64, window=40),
+    "cap50_g1_d128": _flash(1, 2, 2, 100, 100, 128, softcap=50.0),
+    # qwen2-vl's group of 6, with a window and Gemma-2's softcap
+    "window_cap_g6_d128": _flash(1, 12, 2, 70, 70, 128, window=33, softcap=50.0),
+    # granite-moe-1b-a400m's heads (16 over 8, d = 64) on a ragged length
+    "granite_heads": _flash(1, 16, 8, 150, 150, 64),
+    # q aligned to the end of a longer kv sequence, causal and windowed
+    "sq_lt_skv": _flash(2, 4, 2, 50, 150, 64),
+    "sq_lt_skv_window_cap": _flash(1, 6, 1, 60, 140, 32, window=25, softcap=50.0),
+    # whisper's cross attention: no positional mask, Sq != Skv
+    "cross": _flash(1, 4, 4, 40, 100, 64, causal=False),
+    # a small Sq: the forward's lse comes from the split-KV route's combine
+    "split_sq4": _flash(1, 4, 2, 4, 300, 64, softcap=50.0),
+}
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def flash_bwd_case_arrays(name: str):
+    """float32 numpy (q, k, v, dout) of backward case ``name``; the seed is
+    the case's position in ``sorted(FLASH_BWD_CASES)``."""
+    c = FLASH_BWD_CASES[name]
+    rng = np.random.default_rng(1000 + sorted(FLASH_BWD_CASES).index(name))
+    q = rng.standard_normal((c["B"], c["Hq"], c["Sq"], c["d"])).astype(np.float32)
+    k = rng.standard_normal((c["B"], c["Hkv"], c["Skv"], c["d"])).astype(np.float32)
+    v = rng.standard_normal((c["B"], c["Hkv"], c["Skv"], c["d"])).astype(np.float32)
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    return q, k, v, dout
+
+
+def flash_bwd_kwargs(name: str) -> dict:
+    c = FLASH_BWD_CASES[name]
+    return dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+
+
+def check_grad(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
+    """Max abs error of a kernel gradient against the plain one; raises
+    beyond ``FLASH_BWD_TOL[dtype]`` x the plain max |grad|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item() if w.numel() else 0.0
+    if not err <= FLASH_BWD_TOL[dtype] * w.abs().max().item():
+        raise ParityError(f"{what}: gradient differs by {err:.3g} (max |plain| "
+                          f"{w.abs().max().item():.3g}, tol {FLASH_BWD_TOL[dtype]})")
+    return err
+
+
+def check_flash_bwd(q, k, v, dout, kw: dict, what: str) -> dict:
+    """The forward's out and lse (the kernel with its lse output) against
+    ``attention_lse_ref``, the serving forward's bits against them, then the
+    backward kernel against ``attention_bwd_ref`` on the same (q, k, v, out,
+    lse, dout), and a second backward call bit for bit. Returns the errors."""
+    dtype = q.dtype
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    want_out, want_lse = attention_lse_ref(q, k, v, **kw)
+    out_err = check_flash(out, want_out, f"{what}: forward out")
+    tol = FLASH_TOL[dtype]
+    lse_err = (lse - want_lse).abs().max().item()
+    if not bool(((lse - want_lse).abs() <= tol + tol * want_lse.abs()).all()):
+        raise ParityError(f"{what}: lse differs by {lse_err:.3g} (tol {tol})")
+    if not torch.equal(flash_attention(q, k, v, **kw), out):
+        raise ParityError(f"{what}: the serving forward's bits differ from the lse one's")
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise ParityError(f"{what}: two backward calls gave different bits")
+    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    errs = {f"{n}_max_abs_err": check_grad(g, w, dtype, f"{what}: {n}")
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    return dict(errs, max_abs_err=max(errs.values()), out_max_abs_err=out_err,
+                lse_max_abs_err=lse_err, grad_max_abs=max(w.float().abs().max().item()
+                                                          for w in want))
+
+
+def check_flash_bwd_case(name: str, dtype, device) -> dict:
+    """``check_flash_bwd`` on grid case ``name`` in ``dtype``."""
+    q, k, v, dout = (torch.as_tensor(x, device=device).to(dtype)
+                     for x in flash_bwd_case_arrays(name))
+    return check_flash_bwd(q, k, v, dout, flash_bwd_kwargs(name),
+                           f"flash bwd {name}/{str(dtype).removeprefix('torch.')}")

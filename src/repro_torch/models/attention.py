@@ -1,6 +1,7 @@
 """GQA attention: on the card through the hand-written flash kernel
-(``kernels/flash_attention``), on the CPU through the reference's dense and
-chunked (flash-style) paths.
+(``kernels/flash_attention``; under autograd its backward kernel gives the
+gradients), on the CPU through the reference's dense and chunked
+(flash-style) paths, differentiated by autograd.
 
 All take q: (B, Sq, Hq, d) and k / v: (B, Skv, Hkv, d), the models' layout.
 The chunked path keeps memory at O(q_chunk x kv_chunk) per head.

@@ -13,12 +13,22 @@ reference ((L, ...); zamba2's groups (G, n, ...), xlstm's super-blocks
 are stacked the same way. Unlike the reference, whose arrays are
 immutable, prefill and decode write the new k / v and recurrent states into
 the cache they are given, in place, and return that same dict: a 27B
-model's cache is gigabytes, and a copy per step would double it. Training
-(``train_loss``) comes with the training slice (ROADMAP.md, Queue 1).
+model's cache is gigabytes, and a copy per step would double it.
+
+``train_loss`` is the reference's: the sequence-chunked cross entropy with
+its z-loss over the shifted targets (qwen2-vl's vision prefix masked out),
+plus 0.01 x the MoE's load-balancing loss. Under ``cfg.remat`` each block
+(an attention + MLP layer, a Mamba-2 layer, an xLSTM super-block) is
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan bodies). On the card attention runs through
+the flash kernel both ways (``kernels/flash_attention``: FlashAttentionFn).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
@@ -165,17 +175,31 @@ def active_param_count(cfg: ArchConfig, params) -> int:
     return int(total - expert * (1 - cfg.moe_top_k / cfg.n_experts))
 
 
-def _layer(stacked, i: int):
-    """Layer ``i`` of a stack: views into the leaves' leading axis."""
+def _layer(state, i: int):
+    """Layer ``i`` of a stacked recurrent state (a NamedTuple of tensors):
+    views into the leaves' leading axis, which the layer writes in place."""
+    return type(state)(*(t[i] for t in state))
+
+
+def _unstack(stacked) -> list:
+    """The layers of a stacked parameter tree: a list of per-layer trees of
+    views, from one ``torch.unbind`` per leaf, whose backward stacks the
+    layers' gradients once (indexing a stack layer by layer would make each
+    layer's backward a zero gradient the size of the whole stack)."""
     if isinstance(stacked, dict):
-        return {k: _layer(v, i) for k, v in stacked.items()}
-    if isinstance(stacked, tuple):
-        return type(stacked)(*(t[i] for t in stacked))
-    return stacked[i]
+        per = {k: _unstack(v) for k, v in stacked.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(stacked))
 
 
-def _n_stacked(stacked) -> int:
-    return next(_leaves(stacked))[1].shape[0]
+def _remat(cfg: ArchConfig, fn, x, *args):
+    """fn(x, *args); under ``cfg.remat``, when a gradient is being taken
+    through x, its activations are recomputed in the backward instead of
+    kept (the reference's ``jax.checkpoint`` of a scan body)."""
+    if cfg.remat and x.requires_grad and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, x, *args, use_reentrant=False)
+    return fn(x, *args)
 
 
 def _store(dst, src) -> None:
@@ -289,17 +313,25 @@ def _layer_windows(cfg: ArchConfig, n: int) -> list[int]:
     return [NO_WINDOW] * n
 
 
+def _block_at(x, p, cfg, positions, **kw):
+    """``_attn_mlp_block`` with the hidden state first (``_remat``'s order)."""
+    return _attn_mlp_block(cfg, p, x, positions, **kw)
+
+
 def _run_layers(cfg: ArchConfig, stacked, x, positions, *, kv_cache=None,
                 pos=None, causal=True, cross_kv=None):
     """The attn (+ cross) + mlp stack, layer by layer. kv_cache: stacked
-    (L, ...) tensors, layer i's slices written in place; cross_kv: stacked
-    (L, B, Se, Hkv, hd) (k, v). Returns (x, aux summed over layers)."""
+    (L, ...) tensors, layer i's slices written in place; cross_kv: per-layer
+    (k, v) of (B, Se, Hkv, hd), stacked (L, ...) or lists. Returns (x, aux
+    summed over layers)."""
     aux = 0.0
-    for i, window in enumerate(_layer_windows(cfg, _n_stacked(stacked))):
+    layers = _unstack(stacked)
+    for i, (p, window) in enumerate(zip(layers, _layer_windows(cfg, len(layers)))):
         kv = None if kv_cache is None else tuple(t[i] for t in kv_cache)
         ckv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
-        x, a = _attn_mlp_block(cfg, _layer(stacked, i), x, positions, window=window,
-                               kv_cache=kv, pos=pos, causal=causal, cross_kv=ckv)
+        block = functools.partial(_block_at, cfg=cfg, positions=positions, window=window,
+                                  kv_cache=kv, pos=pos, causal=causal, cross_kv=ckv)
+        x, a = _remat(cfg, block, x, p)
         aux = aux + a
     return x, aux
 
@@ -340,7 +372,7 @@ def _vlm_positions(cfg: ArchConfig, B: int, n_vis: int, S_text: int, device=None
     return torch.cat([vis, txt], dim=0)[None].expand(B, n_vis + S_text, 3)
 
 
-def _mamba_layer(cfg: ArchConfig, p, x, ssm_cache, li: int):
+def _mamba_layer(x, p, cfg: ArchConfig, ssm_cache, li: int):
     """Mamba-2 layer ``li`` of the flat (groups, then tail) order; its state
     is read from and written back into the stacked cache."""
     c = None if ssm_cache is None else _layer(ssm_cache, li)
@@ -356,37 +388,44 @@ def _zamba_forward(cfg: ArchConfig, params, x, positions, *, cache=None, pos=0):
     G = cfg.n_layers // n
     ssm_cache = None if cache is None else cache["ssm"]      # stacked (L, ...)
     aux = 0.0
-    for g in range(G):
-        group = _layer(params["mamba_groups"], g)
-        for j in range(n):
-            x = _mamba_layer(cfg, _layer(group, j), x, ssm_cache, g * n + j)
-        kv = None if cache is None else (cache["k"][g], cache["v"][g])
-        x, a = _attn_mlp_block(cfg, params["shared_attn"], x, positions,
-                               window=NO_WINDOW, kv_cache=kv, pos=pos)
-        aux = aux + a
-    for j in range(cfg.n_layers - G * n):
-        x = _mamba_layer(cfg, _layer(params["mamba_tail"], j), x, ssm_cache, G * n + j)
+    mamba = [_unstack(group) for group in _unstack(params["mamba_groups"])]
+    if cfg.n_layers - G * n:
+        mamba.append(_unstack(params["mamba_tail"]))
+    for g, layers in enumerate(mamba):
+        for j, p in enumerate(layers):
+            x = _remat(cfg, functools.partial(_mamba_layer, cfg=cfg, ssm_cache=ssm_cache,
+                                              li=g * n + j), x, p)
+        if g < G:
+            kv = None if cache is None else (cache["k"][g], cache["v"][g])
+            x, a = _attn_mlp_block(cfg, params["shared_attn"], x, positions,
+                                   window=NO_WINDOW, kv_cache=kv, pos=pos)
+            aux = aux + a
     return x, cache, aux
 
 
-def _xlstm_forward(cfg: ArchConfig, params, x, *, cache=None):
-    sup = params["super"]
-    for s in range(_n_stacked(sup)):
-        p = _layer(sup, s)
-        for j in range(_n_stacked(p["mlstm"])):
-            pp = _layer(p["mlstm"], j)
-            c = None if cache is None else _layer(_layer(cache["mlstm"], s), j)
-            h, new = XL.mlstm_forward(pp["x"], rms_norm(x, pp["ln"], cfg.norm_eps),
-                                      cfg.n_heads, cache=c)
-            if c is not None:
-                _store(c, new)
-            x = x + h
-        c = None if cache is None else _layer(cache["slstm"], s)
-        h, new = XL.slstm_forward(p["slstm"]["x"],
-                                  rms_norm(x, p["slstm"]["ln"], cfg.norm_eps), cache=c)
+def _xlstm_super(x, p, cfg: ArchConfig, cache_m, cache_s):
+    """One xLSTM super-block (its mLSTM layers, then the sLSTM); the states
+    are read from and written back into the super-block's cache slices."""
+    for j, pp in enumerate(_unstack(p["mlstm"])):
+        c = None if cache_m is None else _layer(cache_m, j)
+        h, new = XL.mlstm_forward(pp["x"], rms_norm(x, pp["ln"], cfg.norm_eps),
+                                  cfg.n_heads, cache=c)
         if c is not None:
             _store(c, new)
         x = x + h
+    h, new = XL.slstm_forward(p["slstm"]["x"], rms_norm(x, p["slstm"]["ln"], cfg.norm_eps),
+                              cache=cache_s)
+    if cache_s is not None:
+        _store(cache_s, new)
+    return x + h
+
+
+def _xlstm_forward(cfg: ArchConfig, params, x, *, cache=None):
+    for s, p in enumerate(_unstack(params["super"])):
+        cm = None if cache is None else _layer(cache["mlstm"], s)
+        cs = None if cache is None else _layer(cache["slstm"], s)
+        x = _remat(cfg, functools.partial(_xlstm_super, cfg=cfg, cache_m=cm, cache_s=cs),
+                   x, p)
     return x, cache, 0.0
 
 
@@ -417,15 +456,23 @@ def _whisper_encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tens
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
+def _cross_kv(cfg: ArchConfig, params, enc: torch.Tensor) -> tuple[list, list]:
+    """Each decoder layer's cross k and v, (B, Se, Hkv, hd), from the encoder
+    output: two lists of new tensors (the loss takes their gradients)."""
+    B, Se, _ = enc.shape
+    shape = (B, Se, cfg.n_kv_heads, cfg.hd)
+    layers = _unstack(params["dec_layers"]["cross"])
+    return ([(enc @ p["wk"].to(enc.dtype)).reshape(shape) for p in layers],
+            [(enc @ p["wv"].to(enc.dtype)).reshape(shape) for p in layers])
+
+
 def _whisper_cross_kv(cfg: ArchConfig, params, enc: torch.Tensor, ck: torch.Tensor,
                       cv: torch.Tensor) -> None:
     """Each decoder layer's cross k / v from the encoder output, written into
     the stacked (L, B, Se, Hkv, hd) ``ck`` / ``cv``."""
-    B, Se, _ = enc.shape
-    dec = params["dec_layers"]["cross"]
-    for i in range(ck.shape[0]):
-        ck[i] = (enc @ dec["wk"][i].to(enc.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
-        cv[i] = (enc @ dec["wv"][i].to(enc.dtype)).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    for i, (k, v) in enumerate(zip(*_cross_kv(cfg, params, enc))):
+        ck[i] = k
+        cv[i] = v
 
 
 # --------------------------------------------------------------------------
@@ -502,7 +549,7 @@ def grow_cache(cache: dict, max_len: int) -> dict:
 
 
 # --------------------------------------------------------------------------
-# public API: prefill / decode_step
+# public API: train_loss / prefill / decode_step
 # --------------------------------------------------------------------------
 
 
@@ -515,6 +562,74 @@ def _input(params, batch: dict, key: str) -> torch.Tensor:
     """A modality input (frames, vision embeddings) on the params' device, in
     the activation dtype, as the reference casts it."""
     return torch.as_tensor(batch[key], device=params["embed"].device).to(ACT_DTYPE)
+
+
+def _xent_loss(cfg: ArchConfig, params, hidden, targets, mask, chunk: int = 512):
+    """Sequence-chunked cross entropy with a 1e-4 z-loss, as the reference's:
+    at most one (B, chunk, V) block of logits at a time, the mean over the
+    masked-in positions."""
+    B, S, _ = hidden.shape
+    n = max(1, S // chunk)
+    if S % n:  # the reference's rule: chunks of equal size, else one
+        n = 1
+    csize = S // n
+    tot, cnt = 0.0, 0.0
+    for c in range(n):
+        sl = slice(c * csize, (c + 1) * csize)
+        logits = _logits(cfg, params, hidden[:, sl])
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[:, sl, None])[..., 0]
+        m = mask[:, sl]
+        tot = tot + torch.sum((logz - gold) * m + 1e-4 * logz * logz * m)
+        cnt = cnt + torch.sum(m)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
+    """Next-token loss of ``batch`` (``tokens`` (B, S); whisper's ``frames``,
+    qwen2-vl's ``vision_embeds``, as in ``prefill``): a float32 scalar on
+    the params' device, ``+ 0.01 * aux`` for the MoE. No cache is made."""
+    fam = _family(cfg)
+    if fam == "encdec":
+        return _whisper_loss(cfg, params, batch)
+    tokens = _tokens(params, batch["tokens"])
+    B, S = tokens.shape
+    dev = tokens.device
+    x = _embed(cfg, params, tokens)
+    tgt, mask = tokens, torch.ones((B, S), dtype=torch.float32, device=dev)
+    if fam == "vlm":  # the loss on text positions only
+        vis = _input(params, batch, "vision_embeds")
+        n_vis = vis.shape[1]
+        x = torch.cat([vis, x], dim=1)
+        positions = _vlm_positions(cfg, B, n_vis, S, device=dev)
+        tgt = torch.cat([torch.zeros((B, n_vis), dtype=tokens.dtype, device=dev), tokens], 1)
+        mask = torch.cat([torch.zeros((B, n_vis), device=dev), mask], 1)
+    else:
+        positions = _positions_for(cfg, B, S, device=dev)
+    h, _, aux = forward_core(cfg, params, x, positions)
+    h = rms_norm(h, params["ln_final"], cfg.norm_eps)
+    # next-token prediction: targets shifted left
+    tgt = torch.cat([tgt[:, 1:], tgt[:, :1]], dim=1)
+    mask = torch.cat([mask[:, 1:] * mask[:, :-1], torch.zeros_like(mask[:, :1])], dim=1)
+    return _xent_loss(cfg, params, h, tgt, mask) + 0.01 * aux
+
+
+def _whisper_loss(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
+    """Whisper's decoder loss over all of the encoder's frames; the cross
+    k / v are built per layer (``_cross_kv``), so ``dec_layers.cross.wk`` /
+    ``wv`` get their gradients."""
+    enc = _whisper_encode(cfg, params, _input(params, batch, "frames"))
+    ck, cv = _cross_kv(cfg, params, enc)
+    tokens = _tokens(params, batch["tokens"])
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    x, _ = _run_layers(cfg, params["dec_layers"], x,
+                       _positions_for(cfg, B, S, device=tokens.device), cross_kv=(ck, cv))
+    x = rms_norm(x, params["ln_final"], cfg.norm_eps)
+    tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.cat([torch.ones((B, S - 1), device=x.device),
+                      torch.zeros((B, 1), device=x.device)], dim=1)
+    return _xent_loss(cfg, params, x, tgt, mask)
 
 
 def prefill(cfg: ArchConfig, params, batch: dict):

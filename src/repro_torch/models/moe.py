@@ -5,7 +5,8 @@
              waste but branch-free; the correctness oracle.
 ``sorted`` — production path: a stable sort of the routed (token, expert)
              pairs by expert, packed into (E, capacity, d) buffers, batched
-             expert matmuls, scattered back with ``index_add_``.
+             expert matmuls, each token's pairs gathered back and summed in
+             a fixed order (``_combine``).
 Tokens over capacity are dropped (their MoE output is 0 — the residual
 carries them), the standard capacity-factor behaviour. The stable sort
 keeps token order inside an expert, so an overflowing expert drops its
@@ -105,10 +106,25 @@ def moe_sorted(params, x: torch.Tensor, top_k: int, capacity_factor: float = 1.2
     h = F.silu(torch.bmm(buf, params["w_gate"].to(dt)))
     y_buf = torch.bmm(h, params["w_down"].to(dt))                 # (E, cap, D)
     y_pairs = y_buf[e_sorted, pos.clamp(max=cap - 1)]
-    y_pairs = torch.where(keep[:, None], y_pairs, 0.0)
-    y = torch.zeros((B * S, D), dtype=dt, device=x.device).index_add_(
-        0, t_sorted, y_pairs * w_sorted[:, None].to(dt))
-    return y.reshape(B, S, D), aux
+    y_pairs = torch.where(keep[:, None], y_pairs, 0.0) * w_sorted[:, None].to(dt)
+    return _combine(y_pairs, order, B * S).reshape(B, S, D), aux
+
+
+def _combine(y_pairs: torch.Tensor, order: torch.Tensor, T: int) -> torch.Tensor:
+    """Sum each token's K weighted expert outputs (given in the sorted pair
+    order ``order``) in float32 in the order of its experts' ids, then round
+    once to the activation dtype: the bits of the CPU's ``index_add_`` of
+    the sorted pairs, with no atomics on the card, so a training step
+    repeats bit for bit."""
+    K = order.numel() // T
+    at = torch.empty_like(order)
+    at[order] = torch.arange(order.numel(), device=order.device)
+    # a token's pairs sit in the sorted order by expert id, lowest first
+    parts = y_pairs[at.reshape(T, K).sort(dim=1).values].float()    # (T, K, D)
+    y = torch.zeros_like(parts[:, 0])
+    for j in range(K):
+        y = y + parts[:, j]
+    return y.to(y_pairs.dtype)
 
 
 def dropped(experts: torch.Tensor, n_experts: int,

@@ -14,8 +14,9 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ref import batched_scores_ref
-from repro_torch.kernels.parity import (CARD_CASES, FLASH_CASES, FLASH_DTYPES, TOPK_CASES,
-                                        check_case, check_flash_case, check_scores,
+from repro_torch.kernels.parity import (CARD_CASES, FLASH_BWD_CASES, FLASH_CASES,
+                                        FLASH_DTYPES, TOPK_CASES, check_case,
+                                        check_flash_bwd_case, check_flash_case, check_scores,
                                         check_topk_case)
 from repro_torch.kernels.topk.kernel import topk_scores
 from repro_torch.kernels.topk.ref import topk_ref
@@ -79,6 +80,76 @@ def test_cross_attention_cases_take_their_routes(cuda_device, name):
         check_flash_case(name, dtype, cuda_device)
         routes.add(flash_attention.last_route[0])
     assert routes == ({"split_kv"} if name == "xattn_sq1" else {"tensor_core", "fp32"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_backward_matches_plain_on_card(cuda_device, name, dtype):
+    """The backward kernel against ``attention_bwd_ref`` on the same (q, k, v,
+    out, lse, dout), the forward's lse against ``attention_lse_ref``, two
+    backward calls bit for bit, and the serving forward (no lse) bit for bit
+    the lse-writing one's (``parity.check_flash_bwd``)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    before = flash_attention_bwd.launches
+    check_flash_bwd_case(name, FLASH_DTYPES[dtype], cuda_device)
+    assert flash_attention_bwd.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_backward_never_takes_the_plain_version_on_card(cuda_device, monkeypatch):
+    """On CUDA tensors the autograd function's backward launches the kernel:
+    the plain backward, made to raise, is never reached."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    monkeypatch.setattr(K, "attention_bwd_ref", lambda *a, **k: 1 / 0)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 100, 64), generator=g, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+    before = K.flash_attention_bwd.launches
+    K.flash_attention(q, k, v).float().square().sum().backward()
+    assert K.flash_attention_bwd.launches == before + 1
+    assert all(bool(x.grad.abs().max() > 0) for x in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "gemma2-27b", "whisper-medium",
+                                  "qwen2-vl-2b"])
+def test_reduced_train_step_on_card_equals_cpu(cuda_device, name):
+    """One ``make_train_step`` of a ``reduced()`` config on the card
+    (attention both ways in the flash kernels) against the CPU (plain
+    attention under autograd) from the same weights: loss within the JAX
+    suite's bf16 tolerance (rtol 0.05 / atol 0.1), gnorm within 5%, the same
+    lr; every flash forward on the card has its backward."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = get_arch(name).reduced()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": TokenPipeline(cfg.vocab_size, 2, 96, seed=0).batch_at(0)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, cfg.cross_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    step = make_train_step(cfg, peak_lr=1e-3, total_steps=100)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tree = _tree_to(params, dev)
+        st = adamw_init(tree)
+        reset_launch_counts()
+        _, _, m = step(tree, st._replace(step=st.step + 5), batch)
+        out[str(dev)] = {k: float(v) for k, v in m.items()}
+    counts = launch_counts()
+    assert counts["flash_attention"] > 0
+    assert counts["flash_attention_bwd"] == counts["flash_attention"]
+    np.testing.assert_allclose(out["cuda"]["loss"], out["cpu"]["loss"], rtol=0.05, atol=0.1)
+    np.testing.assert_allclose(out["cuda"]["gnorm"], out["cpu"]["gnorm"], rtol=0.05)
+    assert out["cuda"]["lr"] == out["cpu"]["lr"]
 
 
 @pytest.mark.cuda

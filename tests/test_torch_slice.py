@@ -54,6 +54,8 @@ from repro_torch.tenancy import MemoryGovernor, MultiTenantRuntime, Tenant, Tena
 from repro_torch.configs.base import get_arch
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models.model import init_params, make_cache
+from repro_torch.launch.train import main as launch_train
+from repro_torch.train.loop import TrainConfig, train
 
 ROOT = Path(__file__).resolve().parents[1]
 COLS = [("a", 32), ("b", 48), ("c", 24)]
@@ -335,6 +337,8 @@ ENTRY_POINTS = {
     "FlatIndex": lambda db: FlatIndex(db.columns[0]),
     "init_params[moe]": lambda db: init_params(get_arch("granite-moe-1b-a400m").reduced()),
     "make_cache[encdec]": lambda db: make_cache(get_arch("whisper-medium").reduced(), 1, 8),
+    "train": lambda db: train(get_arch("granite-moe-1b-a400m").reduced(), TrainConfig(steps=1)),
+    "launch.train": lambda db: launch_train(["--steps", "1"]),
 }
 
 
