@@ -24,8 +24,10 @@ into ``build/kernels/``), then:
      flash routes (split_kv, tensor_core, fp32); then the flash backward's
      grid (phase ``flash_bwd_grid``: causal or not, window, softcap 50, GQA
      groups 1 / 2 / 6, d = 32 / 64 / 128, Sq < Skv aligned to the end,
-     unmasked cross attention, ragged lengths, x f32/bf16/f16): the kernel
-     against ``attention_bwd_ref`` on the same inputs, the forward's lse
+     unmasked cross attention, ragged lengths, cases spanning several 64-row
+     tiles each way, x f32/bf16/f16): the kernel against
+     ``attention_bwd_ref`` on the same inputs, on its dtype's route
+     (``tensor_core`` for bf16 / f16, ``ffma`` for f32), the forward's lse
      (every route) against ``attention_lse_ref``, two backward calls bit for
      bit, and the serving forward bit for bit the lse-writing one's;
   3. MINT's main path at real scale: the paper's 8-column pool at 1,000,000
@@ -156,7 +158,8 @@ into ``build/kernels/``), then:
      weights from a seed) through ``make_train_step`` for 8 steps of
      8 x 2,048 ``TokenPipeline`` tokens, bf16 grads, remat, peak lr 1e-3:
      finite losses and gnorms, a loss that falls after step 0 (lr 0), flash
-     forward launches 2 x 24 a step (remat) and backward launches 24; every
+     forward launches 2 x 24 a step (remat) and backward launches 24, all on
+     the backward's ``tensor_core`` route; every
      leaf's gradient finite and non-zero, each layer's wq / wk / wv / wo by
      name; a profiled step (the device's busy share, the top kernels); at 2
      layers of the same width one step's loss and gradients with the
@@ -2401,10 +2404,11 @@ class FlashCalls:
         return undo
 
 
-def decode_profile(step) -> dict:
+def decode_profile(step, watch: tuple[str, ...] = ()) -> dict:
     """One call of ``step`` under torch.profiler: its host wall time, the
     device time summed over its kernels (so the device's busy share of the
-    step), and the kernels that take the most of it."""
+    step), the kernels that take the most of it, and for each name in
+    ``watch`` the time, calls and share of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2416,9 +2420,14 @@ def decode_profile(step) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    watched = {}
+    for name in watch:
+        hits = [e for e in kernels if name in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        watched[name] = dict(ms=ms, calls=sum(e.count for e in hits), share=ms / device_ms)
     return dict(wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
                 top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
-                                  calls=e.count) for e in top])
+                                  calls=e.count) for e in top], watched=watched)
 
 
 def phase_model_path(dev) -> dict:
@@ -3126,7 +3135,8 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_flash_bwd_grid(dev, errs: dict) -> None:
-    from repro_torch.kernels.flash_attention.kernel import ROUTES, flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (ROUTES, flash_attention,
+                                                            flash_attention_bwd)
     from repro_torch.kernels.parity import FLASH_BWD_CASES, FLASH_DTYPES, check_flash_bwd_case
     t0 = time.perf_counter()
     routes = set()
@@ -3134,11 +3144,15 @@ def phase_flash_bwd_grid(dev, errs: dict) -> None:
         for label, dtype in FLASH_DTYPES.items():
             res = check_flash_bwd_case(name, dtype, dev)
             route = flash_attention.last_route[0]
+            bwd_route = flash_attention_bwd.last_route
             routes.add(route)
+            check(bwd_route == ("ffma" if dtype == torch.float32 else "tensor_core"),
+                  f"flash bwd {name}/{label} took the {bwd_route} route")
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], res["max_abs_err"])
             errs["flash_attention"] = max(errs["flash_attention"], res["out_max_abs_err"])
             emit("flash_bwd_grid", case=name, dtype=label, forward_route=route,
-                 two_calls_bit_equal=True, serving_forward_bit_equal=True, **res)
+                 backward_route=bwd_route, two_calls_bit_equal=True,
+                 serving_forward_bit_equal=True, **res)
     check(routes == set(ROUTES), f"the backward grid's forwards ran routes {sorted(routes)}")
     emit("flash_bwd_grid_done", seconds=time.perf_counter() - t0)
 
@@ -3152,7 +3166,7 @@ def phase_train_path(dev, peaks) -> dict:
     from repro_torch.configs.base import get_arch
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.train.loop import TrainConfig, batch_at
@@ -3197,6 +3211,7 @@ def phase_train_path(dev, peaks) -> dict:
              ms=step_ms[-1])
     counts = launch_counts()
     fwd_routes = dict(flash_attention.route_launches)
+    bwd_routes = dict(flash_attention_bwd.route_launches)
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses + gnorms), f"losses {losses}, gnorms {gnorms}")
     check(lrs[0] == 0.0 and all(x > 0 for x in lrs[1:]), f"lrs {lrs}")
@@ -3207,6 +3222,8 @@ def phase_train_path(dev, peaks) -> dict:
           f"(remat: 2 x {L} a step)")
     check(counts["flash_attention_bwd"] == L * TRAIN_STEPS,
           f"{counts['flash_attention_bwd']} flash backward launches in {TRAIN_STEPS} steps")
+    check(bwd_routes["tensor_core"] == L * TRAIN_STEPS,
+          f"flash backward routes in {TRAIN_STEPS} steps: {bwd_routes}")
     # every leaf's gradient at the trained params, on the next batch
     batch = batch_at(cfg, tcfg, pipeline, TRAIN_STEPS, dev)
     _, grads = loss_and_grads(cfg, params, batch)
@@ -3222,7 +3239,7 @@ def phase_train_path(dev, peaks) -> dict:
               f"layer gradients of {w}: {norms}")
         per_layer[w] = norms
     del grads
-    profile = decode_profile(lambda: step(params, opt, batch))
+    profile = decode_profile(lambda: step(params, opt, batch), watch=("flash_bwd",))
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -3236,7 +3253,7 @@ def phase_train_path(dev, peaks) -> dict:
                   bf16_peak_share=flops / (steady_ms / 1e3) / peaks["bf16"],
                   flash_forward_launches=counts["flash_attention"],
                   flash_backward_launches=counts["flash_attention_bwd"],
-                  flash_forward_routes=fwd_routes,
+                  flash_forward_routes=fwd_routes, flash_backward_routes=bwd_routes,
                   max_memory_allocated_bytes=peak, attn_grad_norms_by_layer=per_layer,
                   train_step_profile=profile)
 
@@ -3295,6 +3312,8 @@ def phase_train_kernel_time(train: dict, dev, peaks, errs: dict) -> list[dict]:
                           "flash bwd at the granite training call")
     errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], res["max_abs_err"])
     out, lse = flash_attention_lse(q, k, v)
+    bwd_route = flash_attention_bwd.last_route
+    check(bwd_route == "tensor_core", f"the training call's backward took {bwd_route}")
     ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
     plain = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout), reps=3, warmup=1)
     # the library yardstick: the backward of one SDPA call (GQA, causal; the
@@ -3320,10 +3339,12 @@ def phase_train_kernel_time(train: dict, dev, peaks, errs: dict) -> list[dict]:
                   + dout.numel()) + 4 * lse.numel()
     b = bound(nbytes, 2.5 * fwd_flops, peaks, rate="bf16")
     steps = train["steps"]
-    return [table_row("flash_attention_bwd", "cuda", "src/repro_torch/csrc/flash_bwd.cu",
+    return [table_row("flash_attention_bwd", "cuda", "src/repro_torch/csrc/flash_bwd_tc.cu",
                       "src/repro/models/attention.py:133", train["bwd_launches"],
                       errs["flash_attention_bwd"], ms, plain, library, b,
                       shape=[B, Hq, Hkv, S, S, d], call="granite training (causal, bf16)",
+                      backward_route=bwd_route,
+                      pre_pass_and_ffma_route_source="src/repro_torch/csrc/flash_bwd.cu",
                       launches_per_step=train["bwd_launches"] // steps,
                       max_abs_err_at_call=res["max_abs_err"], grad_max_abs=res["grad_max_abs"],
                       replaces_note="no TPU kernel: the reference differentiates "
@@ -3475,7 +3496,7 @@ def main() -> int:
          nvcc=nvcc, device=torch.cuda.get_device_name(0),
          kernel_library=Path(lib._name).name, build_s=time.perf_counter() - t0,
          ptxas=common.ptxas_report(("scan_kernel", "distance_kernel", "topk_select",
-                                    "flash")))
+                                    "flash_bwd", "flash")))
     peaks = card_peaks(card)
     errs = {"streaming_fused_scan": 0.0, "batched_scores": 0.0, "topk_scores": 0.0,
             "flash_attention": 0.0, "flash_attention_bwd": 0.0}

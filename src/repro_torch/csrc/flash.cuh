@@ -1,12 +1,17 @@
 // Shared pieces of the flash-attention routes (flash_attention.cu: the
 // route choice, the entry point and the float32 route; flash_split.cu: the
-// split-KV decode route; flash_tc.cu: the tensor-core prefill route).
+// split-KV decode route; flash_tc.cu: the tensor-core prefill route) and of
+// the backward's (flash_bwd.cu: the route choice, the entry point, the
+// pre-pass and the FP32 FMA route; flash_bwd_tc.cu: the tensor-core route).
 #pragma once
 
 #include "select.cuh"
 
 // Route codes; mint_flash_route (flash_attention.cu) is the one rule.
 enum { ROUTE_SPLIT_KV = 0, ROUTE_TENSOR_CORE = 1, ROUTE_FP32 = 2 };
+
+// Backward route codes; mint_flash_bwd_route (flash_bwd.cu) is the one rule.
+enum { BWD_ROUTE_TENSOR_CORE = 0, BWD_ROUTE_FFMA = 1 };
 
 // Rows of q (Sq x the GQA group) up to which the split-KV route serves a call.
 #define MINT_SPLIT_ROWS 64
@@ -35,6 +40,29 @@ struct FlashArgs {
 __device__ __forceinline__ float row_lse(float m, float l, float ln_unit) {
   return m == MINT_NEG_INF ? MINT_NEG_INF : m * ln_unit + logf(fmaxf(l, 1e-30f));
 }
+
+// One backward call's operands. q, k, v and the gradients dq, dk, dv have
+// strides in elements for the (batch, head, sequence) axes, the head dim
+// contiguous; out and dout are contiguous (B, Hq, Sq, d); lse is the
+// forward's (FlashArgs::lse) and delta the pre-pass's rowsum(dout * out),
+// both (B, Hq, Sq) float32. Semantics (masks, q alignment) are FlashArgs'.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;
+  const void* dout;
+  const float* lse;
+  void* dq;
+  void* dk;
+  void* dv;
+  float* delta;
+  int B, Hq, Hkv, Sq, Skv;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+  int causal, window;
+  float softcap, scale;
+};
 
 // The split-KV plan of kernels/flash_attention/kernel.py:split_plan: the
 // kept kv range [kv_begin, kv_end) cut into n_splits runs of `chunk` keys,
@@ -111,3 +139,7 @@ cudaError_t flash_split_kv(const FlashArgs& a, int d, const SplitPlan& plan,
                            cudaStream_t s);
 template <typename T>
 cudaError_t flash_tensor_core(const FlashArgs& a, int d, cudaStream_t s);
+// the backward's dK / dV and dQ kernels on the tensor-core route (after the
+// pre-pass has written delta)
+template <typename T>
+cudaError_t flash_bwd_tensor_core(const BwdArgs& a, int d, cudaStream_t s);

@@ -14,27 +14,35 @@
 //
 // FlashAttention-2's shape, without atomics, so two calls on the same
 // inputs give the same bits (a restarted training run replays its steps):
-// (1) delta_kernel: D = rowsum(dout * out) in float32, one warp a row;
-// (2) dkdv_kernel: one block per (64-key tile, KV head, batch row) holds its
-//     K and V tiles and walks the group's query heads and, for each, the
-//     64-row q tiles that keep some key of the tile, in a fixed order:
-//     S = Q K^T, P = exp(S - lse) (exactly 0 where masked), dP = dO V^T,
-//     dS = P (dP - D), through the softcap times (1 - tanh^2), times the
-//     scale; dV += P^T dO, dK += dS^T Q, kept in registers;
-// (3) dq_kernel: one block per (64-row q tile, q head, batch row) walks the
-//     kept key tiles, recomputes S, P, dP and dS and accumulates dQ += dS K.
+// (1) flash_bwd_delta: D = rowsum(dout * out) in float32, one warp a row;
+// (2) a dK / dV kernel: one block per (64-key tile, KV head, batch row)
+//     holds its K and V tiles and walks the group's query heads and, for
+//     each, the 64-row q tiles that keep some key of the tile, in a fixed
+//     order: S = Q K^T, P = exp(S - lse) (exactly 0 where masked),
+//     dP = dO V^T, dS = P (dP - D), through the softcap times (1 - tanh^2),
+//     times the scale; dV += P^T dO, dK += dS^T Q, kept in registers;
+// (3) a dQ kernel: one block per (64-row q tile, q head, batch row) walks
+//     the kept key tiles, recomputes S, P, dP and dS and accumulates
+//     dQ += dS K.
 // Key and q tiles that the causal mask or the window masks entirely are
 // skipped (their terms are exactly 0).
 //
+// Two routes, by dtype alone (mint_flash_bwd_route): bf16 / f16 take the
+// tensor-core kernels of flash_bwd_tc.cu (wgmma tiles, P and dS in
+// registers; its header has the design); float32 takes this file's FP32
+// FMA kernels (flash_bwd_dkdv_ffma, flash_bwd_dq_ffma), since TF32 would
+// not hold float32's tolerance. Both share the pre-pass. Nothing falls back
+// from one route to the other.
+//
 // What bounds it on this card: operations. At granite-moe-1b-a400m's
 // training shape (8, 16, 2048, 64), causal, the work is about 10 d flops per
-// kept (q, k) pair and head, 2.5x the forward's. This first version does
-// every product as FP32 FMA on float32 tiles in shared memory (the forward's
-// float32 route's layout and thread tiling: thread (ty, tx) of 16 x 16 owns
-// rows ty*4..+3 and columns tx + 16j), for every input dtype: right and
-// simple first, bound by the FP32 FMA units (67 TFLOP/s), not the tensor
-// cores; the two S / dP recomputations add 4 d flops a pair. mma.sync or
-// wgmma tiles are later work (PERF.md).
+// kept (q, k) pair and head, 2.5x the forward's; the dQ kernel's S / dP
+// recomputation adds 4 d. The FP32 FMA route does every product on float32
+// tiles in shared memory (the forward's float32 route's layout and thread
+// tiling: thread (ty, tx) of 16 x 16 owns rows ty*4..+3 and columns
+// tx + 16j), bound by the FP32 FMA units (67 TFLOP/s).
+#include <type_traits>
+
 #include "flash.cuh"
 
 namespace {
@@ -45,26 +53,8 @@ constexpr int PLD = BKV + 4;  // row stride of the P and dS tiles
 template <int D>
 __host__ __device__ constexpr int tile_ld() { return D + 4; }
 
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* out;   // (B, Hq, Sq, d), contiguous
-  const void* dout;  // (B, Hq, Sq, d), contiguous
-  const float* lse;  // (B, Hq, Sq)
-  void* dq;
-  void* dk;
-  void* dv;
-  float* delta;      // (B, Hq, Sq) scratch: rowsum(dout * out)
-  int B, Hq, Hkv, Sq, Skv;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
-  long long dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-  int causal, window;
-  float softcap, scale;
-};
-
 template <typename T, int D>
-__global__ void delta_kernel(const BwdArgs a) {
+__global__ void flash_bwd_delta(const BwdArgs a) {
   const long long row = (long long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= (long long)a.B * a.Hq * a.Sq) return;
@@ -161,7 +151,7 @@ constexpr int dkdv_smem_floats() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_ffma(const BwdArgs a) {
   constexpr int LD = tile_ld<D>(), NO = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;            // [BKV][LD]
@@ -255,7 +245,7 @@ constexpr int dq_smem_floats() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dq_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_ffma(const BwdArgs a) {
   constexpr int LD = tile_ld<D>(), NO = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [BQ][LD]
@@ -338,25 +328,38 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdArgs a) {
 }
 
 template <typename T, int D>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t s) {
+cudaError_t launch_delta(const BwdArgs& a, cudaStream_t s) {
   const long long rows = (long long)a.B * a.Hq * a.Sq;
-  delta_kernel<T, D><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0,
-                       s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  flash_bwd_delta<T, D><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS,
+                          0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_ffma(const BwdArgs& a, cudaStream_t s) {
   const int kv_bytes = dkdv_smem_floats<D>() * (int)sizeof(float);
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kv_bytes);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_ffma<float, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, D><<<dim3((a.Skv + BKV - 1) / BKV, a.Hkv, a.B), THREADS, kv_bytes, s>>>(a);
+  flash_bwd_dkdv_ffma<float, D>
+      <<<dim3((a.Skv + BKV - 1) / BKV, a.Hkv, a.B), THREADS, kv_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int q_bytes = dq_smem_floats<D>() * (int)sizeof(float);
-  err = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             q_bytes);
+  err = cudaFuncSetAttribute(flash_bwd_dq_ffma<float, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), THREADS, q_bytes, s>>>(a);
+  flash_bwd_dq_ffma<float, D><<<dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), THREADS, q_bytes, s>>>(a);
   return cudaGetLastError();
+}
+
+// the pre-pass, then the route's dK / dV and dQ kernels
+template <typename T, int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t s) {
+  cudaError_t err = launch_delta<T, D>(a, s);
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, float>::value) return launch_ffma<D>(a, s);
+  else return flash_bwd_tensor_core<T>(a, D, s);
 }
 
 template <typename T>
@@ -370,6 +373,13 @@ cudaError_t flash_bwd(const BwdArgs& a, int d, cudaStream_t s) {
 }
 
 }  // namespace
+
+// The backward's route, by dtype alone: tensor cores for bf16 / f16, FP32
+// FMA for float32. -1 for a dtype no route takes.
+extern "C" int mint_flash_bwd_route(int dtype) {
+  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16) return BWD_ROUTE_TENSOR_CORE;
+  return dtype == DTYPE_F32 ? BWD_ROUTE_FFMA : -1;
+}
 
 // Strides are in elements, for the (batch, head, sequence) axes of q, k, v
 // and of the gradients dq, dk, dv (each laid out like its input or
@@ -393,8 +403,12 @@ extern "C" int mint_flash_attention_bwd(
                      dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
                      causal, window, softcap, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32) return flash_bwd<float>(a, d, s);
-  if (dtype == DTYPE_BF16) return flash_bwd<__nv_bfloat16>(a, d, s);
-  if (dtype == DTYPE_F16) return flash_bwd<__half>(a, d, s);
+  switch (mint_flash_bwd_route(dtype)) {
+    case BWD_ROUTE_TENSOR_CORE:
+      if (dtype == DTYPE_BF16) return flash_bwd<__nv_bfloat16>(a, d, s);
+      return flash_bwd<__half>(a, d, s);
+    case BWD_ROUTE_FFMA:
+      return flash_bwd<float>(a, d, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -27,13 +27,12 @@
 //   2^-11 (PTX ISA), so a capped logit at cap 50 may move by up to ~0.025;
 //   the grid's bf16 / f16 tolerance and the model's logit checks hold it
 //   (chip_smoke.py; PERF.md has the measured errors).
-#include "cp_async.cuh"
 #include "flash.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BKV = 64, WARPS = BQ / 16, THREADS = WARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
 struct TcLayout {
@@ -42,58 +41,6 @@ struct TcLayout {
   static constexpr int KV_ELEMS = BKV * LD;
   static constexpr int SMEM = (Q_ELEMS + 4 * KV_ELEMS) * 2;  // bytes
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), f32 accumulators
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1,
-                                    const __nv_bfloat16*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1,
-                                    const __half*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as one register of two 16-bit values, lo in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, const __nv_bfloat16*) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, const __half*) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// one SFU instruction each: the route's softmax would otherwise issue three
-// SFU operations per score (exp and reciprocal for tanh, exp for p)
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2) tc_kernel(const FlashArgs a) {

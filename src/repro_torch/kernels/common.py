@@ -168,7 +168,8 @@ def build_library() -> Path:
 
 def ptxas_report(names: tuple[str, ...]) -> dict[str, list[dict]]:
     """Registers and spill bytes of each compiled kernel whose mangled name
-    holds one of ``names``, from the ptxas report of the last build."""
+    holds one of ``names`` (listed under the first that it holds), from the
+    ptxas report of the last build."""
     path = library_path().with_suffix(".ptxas.txt")
     out: dict[str, list[dict]] = {n: [] for n in names}
     entry = None
@@ -183,9 +184,9 @@ def ptxas_report(names: tuple[str, ...]) -> dict[str, list[dict]]:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             entry["registers"] = int(m.group(1))
-            for n in names:
-                if n in entry["kernel"]:
-                    out[n].append(entry)
+            first = next((n for n in names if n in entry["kernel"]), None)
+            if first is not None:
+                out[first].append(entry)
             entry = None
     return out
 
@@ -205,6 +206,7 @@ _SIGNATURES = {
     "mint_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 18
                                 + [_I, _I, _F, _F, _I, _P],
     "mint_flash_route": [_I, _I, _I],
+    "mint_flash_bwd_route": [_I],
 }
 
 

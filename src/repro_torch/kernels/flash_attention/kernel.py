@@ -6,11 +6,13 @@ On a CUDA tensor it launches ``csrc/flash_attention.cu`` (the port of
 it computes the plain version in ``ref.py``. Under autograd the call goes
 through ``FlashAttentionFn``: the forward also writes each row's lse, and
 the backward launches ``csrc/flash_bwd.cu`` (on the CPU:
-``attention_bwd_ref``). The C entry point picks one of
+``attention_bwd_ref``). The forward's C entry point picks one of
 three routes by shape and dtype (``mint_flash_route``): split-KV decode
 when Sq x group <= 64, tensor cores for bf16 / f16 beyond that, the FP32
 kernel for float32. The wrapper plans the split-KV route's splits here
-(``split_plan``) and allocates their scratch.
+(``split_plan``) and allocates their scratch. The backward's route is
+chosen by dtype alone (``mint_flash_bwd_route``): tensor cores
+(``csrc/flash_bwd_tc.cu``) for bf16 / f16, FP32 FMA tiles for float32.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attentio
 
 HEAD_DIMS = (32, 64, 128)
 ROUTES = ("split_kv", "tensor_core", "fp32")  # mint_flash_route's codes
+BWD_ROUTES = ("tensor_core", "ffma")  # mint_flash_bwd_route's codes
 SPLIT_MIN_KEYS = 128   # fewest keys a split walks (four 8-key chunks a warp)
 SPLIT_BLOCKS_PER_SM = 4
 
@@ -199,9 +202,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention``'s output given ``dout``, from the
     forward's ``out`` and ``lse``; grads in the inputs' dtypes and layouts.
     On the card it launches ``csrc/flash_bwd.cu`` (a pre-pass for
-    D = rowsum(dout * out), a dK / dV kernel and a dQ kernel, no atomics:
-    two calls on the same inputs give the same bits); on CPU tensors it
-    computes ``attention_bwd_ref``."""
+    D = rowsum(dout * out), then a dK / dV kernel and a dQ kernel on the
+    dtype's route: ``tensor_core`` for bf16 / f16, ``ffma`` for float32; no
+    atomics: two calls on the same inputs give the same bits); on CPU
+    tensors it computes ``attention_bwd_ref``."""
     _check_shapes(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -221,6 +225,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = load_library()
+    route = BWD_ROUTES[lib.mint_flash_bwd_route(DTYPE_CODES[q.dtype])]
     err = lib.mint_flash_attention_bwd(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(dq), ptr(dk),
         ptr(dv), ptr(delta), B, Hq, Hkv, Sq, Skv, d,
@@ -228,14 +233,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
         int(causal), int(window), float(softcap), scale_f, DTYPE_CODES[q.dtype],
         stream_ptr(q.device))
-    check_launch(lib, err, "flash_attention_bwd")
+    check_launch(lib, err, f"flash_attention_bwd ({route})")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.route_launches[BWD_ROUTE] += 1
-    flash_attention_bwd.last_route = BWD_ROUTE
+    flash_attention_bwd.route_launches[route] += 1
+    flash_attention_bwd.last_route = route
     return dq, dk, dv
 
 
-BWD_ROUTE = "ffma"  # the backward's one route: FP32 FMA tiles for every dtype
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = {BWD_ROUTE: 0}
+# launches by route since the last reset, and the route of the latest launch
+flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 flash_attention_bwd.last_route = None

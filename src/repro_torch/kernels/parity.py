@@ -401,14 +401,27 @@ FLASH_BWD_CASES = {
     # a small Sq: the forward's lse comes from the split-KV route's combine
     "split_sq4": _flash(1, 4, 2, 4, 300, 64, softcap=50.0),
 }
+# cases that span several 64-row tiles each way, so that interior tiles (no
+# compares), diagonal tiles and window-edge tiles all occur
+FLASH_BWD_TILE_CASES = {
+    "tiles_causal_g2_d64": _flash(1, 4, 2, 320, 320, 64),
+    # q shifted 64 into the kv sequence
+    "tiles_window_cap_d128": _flash(1, 2, 1, 200, 264, 128, window=100, softcap=50.0),
+    "tiles_full_d32": _flash(2, 2, 2, 192, 256, 32, causal=False),
+}
+# each case's seed: 1000 + its position among the first cases sorted, then
+# the tile cases in order
+_BWD_SEEDS = {name: 1000 + i
+              for i, name in enumerate([*sorted(FLASH_BWD_CASES), *FLASH_BWD_TILE_CASES])}
+FLASH_BWD_CASES.update(FLASH_BWD_TILE_CASES)
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 def flash_bwd_case_arrays(name: str):
-    """float32 numpy (q, k, v, dout) of backward case ``name``; the seed is
-    the case's position in ``sorted(FLASH_BWD_CASES)``."""
+    """float32 numpy (q, k, v, dout) of backward case ``name``, drawn from
+    the case's seed (``_BWD_SEEDS``)."""
     c = FLASH_BWD_CASES[name]
-    rng = np.random.default_rng(1000 + sorted(FLASH_BWD_CASES).index(name))
+    rng = np.random.default_rng(_BWD_SEEDS[name])
     q = rng.standard_normal((c["B"], c["Hq"], c["Sq"], c["d"])).astype(np.float32)
     k = rng.standard_normal((c["B"], c["Hkv"], c["Skv"], c["d"])).astype(np.float32)
     v = rng.standard_normal((c["B"], c["Hkv"], c["Skv"], c["d"])).astype(np.float32)

@@ -1,7 +1,8 @@
-"""Device times of the MINT kernels at the main path's shapes, on seeded
-random inputs, on one CUDA card.
+"""Device times of the MINT kernels at the main path's shapes, and of the
+flash-attention backward at the training path's call, on seeded random
+inputs, on one CUDA card.
 
-    python3 src/repro_torch/launch/kernel_bench.py [--src DIR] [--label NAME]
+    python3 src/repro_torch/launch/kernel_bench.py [--src DIR] [--label NAME] [--only K,...]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
 checkout's by default), so the kernels of two trees can be compared on one
@@ -12,13 +13,22 @@ those ``chip_smoke.py`` notes on the 1,000,000-row main path: the
 distance kernel's IVF centroids, rerank union and two-pass flat scan, its two
 nominal shapes, top-k over the flat scan's scores (k = 100) and over scores
 rising along each row (the threshold's worst case), the streaming scan at
-B = 64 and B = 1, and the two-pass scan at B = 64. Nothing here is imported
-by the port; ``chip_smoke.py`` takes ``cuda_ms`` from it.
+B = 64 and B = 1, and the two-pass scan at B = 64. ``--only
+flash_attention_bwd`` times the backward (``flash_attention_bwd``, with its
+route and each of its kernels' share by torch.profiler) and the forward
+that writes its lse (``flash_attention_lse``) at
+granite-moe-1b-a400m's training call (``TRAIN_CALL``: q (8, 16, 2048, 64)
+in the model's strided layout, 8 KV heads, causal, bf16), each beside one
+SDPA call of the same function; ``--only flash_attention`` times the
+forward at two serving decode calls (``DECODE_CALLS``). Nothing here is
+imported by the port;
+``chip_smoke.py`` takes ``cuda_ms`` from it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +76,76 @@ DISTANCE_SHAPES = (("centroids", 64, 1000, 128), ("rerank", 64, 999_996, 384),
                    ("nominal_1000x384", 64, 1000, 384),
                    ("nominal_4096x1024", 64, 4096, 1024))
 SCAN_N, SCAN_D, K = 1_000_064, 384, 100
+# (B, Hq, Hkv, S, d) of granite-moe-1b-a400m's attention in chip_smoke.py's
+# training path
+TRAIN_CALL = (8, 16, 8, 2048, 64)
+
+
+def kernel_split(fn, calls: int = 5) -> dict[str, float]:
+    """Device ms of one call of ``fn`` per kernel it launches (torch.profiler
+    over ``calls`` calls), keyed by the kernel's function name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"::(\w+)[<(]", e.key)
+            name = m.group(1) if m else e.key[:60]
+            split[name] = split.get(name, 0.0) + e.self_device_time_total / calls / 1e3
+    return split
+
+
+def flash_train_call(out, dev, g) -> None:
+    """The backward and its lse-writing forward at ``TRAIN_CALL``, beside
+    SDPA's backward and forward (GQA, causal: the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_lse)
+    B, Hq, Hkv, S, d = TRAIN_CALL
+
+    def heads(h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
+        return torch.randn((B, S, h, d), generator=g, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v = heads(Hq), heads(Hkv), heads(Hkv)
+    dout = torch.randn((B, Hq, S, d), generator=g, device=dev, dtype=torch.bfloat16)
+    o, lse = flash_attention_lse(q, k, v)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    ref = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    shape = [B, Hq, Hkv, S, d]
+    out("flash_attention_bwd", "granite_training_forward_lse", shape,
+        lambda: flash_attention_lse(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        kernel="flash_attention_lse")
+    bwd = lambda: flash_attention_bwd(q, k, v, o, lse, dout)  # noqa: E731
+    bwd()
+    out("flash_attention_bwd", "granite_training", shape, bwd,
+        lambda: torch.autograd.grad(ref, (qg, kg, vg), dout, retain_graph=True),
+        route=flash_attention_bwd.last_route, split_ms=kernel_split(bwd))
+
+
+# (label, B, Hq, Hkv, Skv, d, causal, softcap) of two serving decode calls
+# chip_smoke.py times: Gemma-2-27B's global layer at its 8,193-key cache and
+# whisper-medium's cross attention over 1,500 encoder positions (Sq = 1)
+DECODE_CALLS = (("gemma2_decode_global", 2, 32, 16, 8193, 128, True, 50.0),
+                ("whisper_cross_decode", 2, 16, 16, 1500, 64, False, 0.0))
+
+
+def flash_decode_calls(out, dev, g) -> None:
+    """The forward's split-KV route at ``DECODE_CALLS``, q / k / v in the
+    models' (B, S, H, d) layout seen as (B, H, S, d)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    for call, B, Hq, Hkv, Skv, d, causal, softcap in DECODE_CALLS:
+        def heads(h, s):
+            return torch.randn((B, s, h, d), generator=g, device=dev,
+                               dtype=torch.bfloat16).transpose(1, 2)
+        q, k, v = heads(Hq, 1), heads(Hkv, Skv), heads(Hkv, Skv)
+        out("flash_attention", call, [B, Hq, Hkv, 1, Skv, d],
+            lambda: flash_attention(q, k, v, causal=causal, softcap=softcap))
 
 
 def main() -> int:
@@ -98,15 +178,25 @@ def main() -> int:
 
     only = set(filter(None, args.only.split(",")))
 
-    def out(kernel, call, shape, fn, library=None):
-        if only and kernel not in only:
+    def wanted(group):
+        return not only or group in only
+
+    def out(group, call, shape, fn, library=None, **extra):
+        """One line for ``fn`` under ``group`` (what ``--only`` names)."""
+        if not wanted(group):
             return
-        line = dict(label=args.label, kernel=kernel, call=call, shape=shape, ms=cuda_ms(fn))
+        line = dict(label=args.label, kernel=group, call=call, shape=shape, ms=cuda_ms(fn))
         if library is not None:
             line["library_ms"] = cuda_ms(library)
-        print(json.dumps(line), flush=True)
+        print(json.dumps(dict(line, **extra)), flush=True)
 
     g = torch.Generator(device=dev).manual_seed(0)
+    if wanted("flash_attention_bwd"):
+        flash_train_call(out, dev, g)
+    if wanted("flash_attention"):
+        flash_decode_calls(out, dev, g)
+    if only and only <= {"flash_attention_bwd", "flash_attention"}:
+        return 0
     for call, B, N, d in DISTANCE_SHAPES:
         q = torch.randn(B, d, generator=g, device=dev)
         x = torch.randn(N, d, generator=g, device=dev)

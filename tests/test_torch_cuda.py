@@ -14,10 +14,11 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ref import batched_scores_ref
-from repro_torch.kernels.parity import (CARD_CASES, FLASH_BWD_CASES, FLASH_CASES,
-                                        FLASH_DTYPES, TOPK_CASES, check_case,
+from repro_torch.kernels.parity import (CARD_CASES, FLASH_BWD_CASES, FLASH_BWD_TILE_CASES,
+                                        FLASH_CASES, FLASH_DTYPES, TOPK_CASES, check_case,
                                         check_flash_bwd_case, check_flash_case, check_scores,
-                                        check_topk_case)
+                                        check_topk_case, flash_bwd_case_arrays,
+                                        flash_bwd_kwargs)
 from repro_torch.kernels.topk.kernel import topk_scores
 from repro_torch.kernels.topk.ref import topk_ref
 
@@ -109,6 +110,51 @@ def test_flash_backward_never_takes_the_plain_version_on_card(cuda_device, monke
     K.flash_attention(q, k, v).float().square().sum().backward()
     assert K.flash_attention_bwd.launches == before + 1
     assert all(bool(x.grad.abs().max() > 0) for x in (q, k, v))
+
+
+def _bwd_case(name, dtype, device):
+    return tuple(torch.as_tensor(x, device=device).to(FLASH_DTYPES[dtype])
+                 for x in flash_bwd_case_arrays(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_TILE_CASES))
+def test_flash_backward_route_by_dtype_repeats_bit_for_bit(cuda_device, name, dtype):
+    """bf16 and f16 launch the backward's tensor-core route, float32 its FP32
+    FMA route; two calls on a route give the same bits."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_lse)
+    q, k, v, dout = _bwd_case(name, dtype, cuda_device)
+    kw = flash_bwd_kwargs(name)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    route = "ffma" if dtype == "f32" else "tensor_core"
+    before = flash_attention_bwd.route_launches[route]
+    first = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert flash_attention_bwd.last_route == route
+    second = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert flash_attention_bwd.route_launches[route] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_TILE_CASES))
+def test_flash_backward_strided_views_equal_contiguous(cuda_device, name, dtype):
+    """(B, S, H, d) tensors seen as (B, H, S, d), the models' layout, give the
+    gradients of contiguous copies bit for bit, in the inputs' layouts."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_lse)
+    q, k, v, dout = _bwd_case(name, dtype, cuda_device)
+    kw = flash_bwd_kwargs(name)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()  # (k and v with one head count as contiguous)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    want = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    got = flash_attention_bwd(*views, out, lse, dout, **kw)
+    for g, w, x in zip(got, want, views):
+        assert g.stride() == x.stride()
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
