@@ -64,7 +64,8 @@ into ``build/kernels/``), then:
      filled to 200) and the torch DP against the Python DP (phase
      ``planner_dp``);
   8. the online runtime on that tuned database (phase ``online_path``,
-     ``--online-queries`` arrivals, a third of them exact re-arrivals):
+     ``--online-queries`` arrivals, 64 by default: cut from 96, printed as
+     a ``scale_cut``; a third of them exact re-arrivals):
      ``OnlineRuntime`` sync, async on a worker pool with staged uploads and
      without (ids equal), with the semantic cache (every re-arrival hits,
      probes scan the namespace's resident CUDA matrix, ids equal), observed
@@ -174,7 +175,23 @@ into ``build/kernels/``), then:
   17. one training step of each family's ``reduced()`` config on the CPU and
      on the card (phase ``train_cpu_vs_card``): loss, gnorm, lr and every
      leaf's gradient within the bf16 bounds of
-     tests/test_torch_train_families.py.
+     tests/test_torch_train_families.py;
+  18. sharded training (phase ``sharded_train_path``): granite-moe-1b-a400m
+     at full width and depth on ``make_debug_mesh(2, 4)`` of the card (tp
+     mode: each of the 8 ranks runs the flash kernels on its 4 q heads and 2
+     kv heads, both ways; ZeRO-1 moments), 3 steps of train_path's master
+     params and batches: the step-0 loss within 1e-2 relative of one
+     device's, a repeat of step 0 bit-equal, flash launches 2 x 24 x 8
+     forward and 24 x 8 backward a step, each step's collectives (calls and
+     bytes by kind); an elastic reshard onto (4, 2) and one step there; at 2
+     layers of the width, on the unsharded bf16 step's MoE routes replayed,
+     every gradient of the sharded step against the unsharded one in float32
+     (relative L2 <= 1e-4) and in bf16 (<= 0.05, every leaf but the
+     embedding, whose bf16 index backward is held through float32), and on
+     each side's own routes in float32 the loss (1e-5 relative) and, where
+     no token routes otherwise, every gradient (1e-4); then the flash forward
+     (with lse) and backward at one rank's call, held, timed beside their
+     plain versions and SDPA, and bounded.
 
 Any failure exits non-zero. The last three lines are the card's name and
 power limit, the kernel table and ``{"ok": true, "device": {...}}``.
@@ -1108,6 +1125,10 @@ def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev
 # ---- the online runtime on the card --------------------------------------------------
 
 ONLINE_QUERIES = 96      # the online trace's arrivals: 2/3 fresh, 1/3 exact re-arrivals
+# the arrivals run by default, cut to make room for sharded_train_path (the
+# tenant path's DRR-vs-FIFO check needs its 96 arrivals; this phase's checks
+# hold at 64, a CPU rehearsal shows)
+ONLINE_QUERIES_CUT = 64
 ONLINE_BUDGET_S = 250.0  # the phase's share of the script's time limit
 # the drift phase's "night" traffic: column 0 (glove25), which no bisimple
 # query touches, with columns the day traffic also uses
@@ -1193,7 +1214,8 @@ def phase_online_path(main: dict, dev, queries: int) -> dict:
     # attribute store the filter phase attached
     mint = replace(r["tuner"], attributes=None, _selest=None)
     if queries != ONLINE_QUERIES:
-        emit("scale_cut", online_queries=queries, online_queries_default=ONLINE_QUERIES)
+        emit("scale_cut", online_queries=queries, online_queries_default=ONLINE_QUERIES,
+             why="room for sharded_train_path in the time limit")
     rss0 = host_rss_gib()
     peak0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     trace, n_rep = online_trace(db, wl, queries)
@@ -3355,6 +3377,373 @@ def phase_train_kernel_time(train: dict, dev, peaks, errs: dict) -> list[dict]:
                       achieved_tflops_bound_flops=2.5 * fwd_flops / ms / 1e9)]
 
 
+# ---- sharded training: granite on a (2, 4) debug mesh of the card ----------------
+
+SHARD_MESH, SHARD_MESH_AFTER = (2, 4), (4, 2)  # (data, model); the elastic reshard
+SHARD_STEPS = 3
+SHARD_BUDGET_S = 120.0  # the phase's share of the script's time limit, rows included
+# the sharded loss against one device's at step 0 (the psums re-round bf16
+# partial sums)
+SHARD_LOSS_RTOL = 1e-2
+SHARD_F32_GRAD_REL_L2 = 1e-4  # tests/test_torch_tp_train.py's float32 bounds
+SHARD_F32_LOSS_RTOL = 1e-5
+
+
+class PinnedRoutes:
+    """The MoE's routing, recorded in one run and replayed in another (the
+    unsharded step's expert choices in the sharded step): in bf16 the
+    tensor-parallel psums round the router's input differently from one
+    device's (~1e-3 relative), and a token whose k-th and (k + 1)-th experts
+    are that close changes experts, which moves every gradient downstream by
+    more than the rounding itself. Replayed, the sharded step routes each
+    token as the unsharded one did (its weights are its own probabilities
+    of those experts), and ``flips`` counts the tokens whose own choice
+    differed. Calls are matched in order: each recorded call is replayed as
+    ``n_split`` calls, one per data rank, over consecutive token rows. With
+    ``pin=False`` a replay only counts the flips and keeps each call's own
+    routes."""
+
+    def __init__(self, pin: bool = True):
+        self.calls, self.flips, self.replay, self.n_split, self.at = [], [], False, 1, 0
+        self.pin = pin
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._mod, self._orig = MOE, MOE._route
+        MOE._route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._route = self._orig
+        return False
+
+    def _route(self, router, x, k):
+        w, e, probs = self._orig(router, x, k)
+        if not self.replay:
+            self.calls.append(e)
+            return w, e, probs
+        j, self.at = self.at, self.at + 1
+        T = x.shape[0]
+        pinned = self.calls[j // self.n_split][(j % self.n_split) * T:][:T].to(e.device)
+        self.flips.append(int((e.sort(dim=1).values != pinned.sort(dim=1).values)
+                              .any(dim=1).sum()))
+        if not self.pin:
+            return w, e, probs
+        pw = probs.gather(1, pinned)
+        return pw / pw.sum(-1, keepdim=True).clamp(min=1e-9), pinned, probs
+
+
+def log_of(mesh) -> dict:
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in sorted(mesh.log.items())}
+
+
+def phase_sharded_train_path(dev, peaks) -> dict:
+    """granite-moe-1b-a400m at full width and depth on ``make_debug_mesh(2,
+    4)`` of the card, tp mode with ZeRO-1 moments: SHARD_STEPS sharded steps
+    of train_path's seeded f32 master params and 8 x 2,048-token batches
+    (each of the 8 ranks runs the flash kernels on its 4 q heads and 2 kv
+    heads, both ways), step 0 twice (bit-equal), its loss against one
+    device's; then an elastic reshard onto (4, 2) and one step there; and
+    at 2 layers of the full width every gradient of the sharded step against
+    the unsharded one."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.elastic import check_mesh_fits, reshard_tree
+    from repro_torch.distributed.sharding import gather_tree, param_shardings, shard_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainConfig, batch_at
+    from repro_torch.train.optimizer import tree_leaves, zero1_shardings
+    from repro_torch.train.step import (cast_tree, full_grads, loss_and_grads,
+                                        make_sharded_train_step, sharded_adamw_init,
+                                        sharded_loss_and_grads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left < 1 << 30, f"{left} bytes still allocated before sharded training")
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_MODEL)
+    L = cfg.n_layers
+    tcfg = TrainConfig(steps=SHARD_STEPS, batch=TRAIN_B, seq_len=TRAIN_S,
+                       peak_lr=TRAIN_PEAK_LR, device=str(dev))
+    pipeline = TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=tcfg.seed)
+    params = M.init_params(cfg, seed=0, device=dev)  # train_path's master params
+    mesh = make_debug_mesh(*SHARD_MESH)
+    check(check_mesh_fits(params, mesh) == [], f"{cfg.name} does not fit {SHARD_MESH}")
+    psh = param_shardings(params, mesh)
+    placed = shard_tree(params, psh)
+    msh = zero1_shardings(psh, params, mesh)
+    n_dp, n_tp = SHARD_MESH
+    batch0 = batch_at(cfg, tcfg, pipeline, 0, dev)
+    with torch.no_grad():
+        one_loss = float(M.train_loss(cfg, cast_tree(params, torch.bfloat16), batch0))
+    del params
+    gc.collect()
+    step = make_sharded_train_step(cfg, bf16_grads=True, peak_lr=TRAIN_PEAK_LR,
+                                   total_steps=SHARD_STEPS + 1)
+    st0 = sharded_adamw_init(placed, msh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms, logs = [], [], [], []
+    reset_launch_counts()
+    for i in range(SHARD_STEPS):
+        batch = batch0 if i == 0 else batch_at(cfg, tcfg, pipeline, i, dev)
+        mesh.log.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_p, new_st, m = step(placed, st0, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logs.append(log_of(mesh))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        emit("sharded_train_step", step=i, mesh=list(SHARD_MESH), loss=losses[-1],
+             gnorm=gnorms[-1], lr=float(m["lr"]), ms=step_ms[-1], collectives=logs[-1])
+        if i == 0:
+            counted = launch_counts()
+            routes = dict(flash_attention_bwd.route_launches)
+            # the repeat of step 0, from the same params, state and batch
+            again_p, again_st, again_m = step(placed, st0, batch)
+            check(float(again_m["loss"]) == losses[0] and float(again_m["gnorm"]) == gnorms[0],
+                  "a repeat of sharded step 0 gave another loss or gnorm")
+            for tree_a, tree_b in ((new_p, again_p), (new_st.m, again_st.m),
+                                   (new_st.v, again_st.v)):
+                for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
+                    check(all(torch.equal(x, y) for (_, x), (_, y) in
+                              zip(a.distinct(), b.distinct())),
+                          "a repeat of sharded step 0 gave other bits")
+            del again_p, again_st
+            reset_launch_counts()  # the repeat is a check: its launches are not counted
+        placed, st0 = new_p, new_st
+        del new_p, new_st
+    counts = {k: v + counted[k] for k, v in launch_counts().items()}
+    bwd_routes = {k: v + routes.get(k, 0)
+                  for k, v in flash_attention_bwd.route_launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ranks = n_dp * n_tp
+    check(all(math.isfinite(x) for x in losses + gnorms), f"losses {losses}, gnorms {gnorms}")
+    rel0 = abs(losses[0] - one_loss) / abs(one_loss)
+    check(rel0 <= SHARD_LOSS_RTOL, f"sharded step-0 loss {losses[0]} vs one device's "
+          f"{one_loss}: rel {rel0:.3g} > {SHARD_LOSS_RTOL}")
+    check(counts["flash_attention"] == 2 * L * ranks * SHARD_STEPS,
+          f"{counts['flash_attention']} flash forward launches in {SHARD_STEPS} sharded "
+          f"steps (remat: 2 x {L} layers x {ranks} ranks a step)")
+    check(counts["flash_attention_bwd"] == L * ranks * SHARD_STEPS,
+          f"{counts['flash_attention_bwd']} flash backward launches in {SHARD_STEPS} steps")
+    check(bwd_routes.get("tensor_core", 0) >= L * ranks * SHARD_STEPS,
+          f"flash backward routes: {bwd_routes}")
+
+    # elastic: the trained state gathered and laid out on (4, 2), one step there
+    t0 = time.perf_counter()
+    mesh2 = make_debug_mesh(*SHARD_MESH_AFTER)
+    full = gather_tree(placed)
+    placed2 = reshard_tree(full, mesh2)
+    msh2 = zero1_shardings(param_shardings(full, mesh2), full, mesh2)
+    st2 = st0._replace(m=shard_tree(gather_tree(st0.m), msh2),
+                       v=shard_tree(gather_tree(st0.v), msh2))
+    del placed, st0
+    batch3 = batch_at(cfg, tcfg, pipeline, SHARD_STEPS, dev)
+    with torch.no_grad():
+        one3 = float(M.train_loss(cfg, cast_tree(full, torch.bfloat16), batch3))
+    del full
+    gc.collect()
+    reshard_s = time.perf_counter() - t0
+    mesh2.log.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m2 = step(placed2, st2, batch3)
+    torch.cuda.synchronize()
+    after_ms = (time.perf_counter() - t0) * 1e3
+    loss_after = float(m2["loss"])
+    rel3 = abs(loss_after - one3) / abs(one3)
+    check(math.isfinite(loss_after) and rel3 <= SHARD_LOSS_RTOL,
+          f"after the reshard onto {SHARD_MESH_AFTER}: loss {loss_after} vs one device's "
+          f"{one3}")
+    emit("sharded_reshard", mesh=list(SHARD_MESH_AFTER), reshard_s=reshard_s,
+         loss=loss_after, one_device_loss=one3, rel=rel3, ms=after_ms,
+         collectives=log_of(mesh2))
+    del placed2, st2, m2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 layers of the full width: every gradient of the sharded step against
+    # the unsharded step's. First on the unsharded bf16 step's routes
+    # (replayed): in float32 activations (the flash kernels' fp32 routes) the
+    # two compute one function, held to SHARD_F32_GRAD_REL_L2 for every leaf;
+    # in bf16 (the step's own setting, the tensor-core routes) every leaf but
+    # the embedding is held to TRAIN_GRAD_REL_L2. The embedding's bf16
+    # gradient is not one function: its index backward accumulates thousands
+    # of repeated tokens in bf16 (~0.3 off its float32 value on one device),
+    # and the data split groups those sums otherwise; it is held through the
+    # float32 comparison. Then in float32 on each side's own routes (the
+    # sharded path's global routing and capacity): the loss to
+    # SHARD_F32_LOSS_RTOL and, where no token's own routes differ between
+    # the two, every gradient to SHARD_F32_GRAD_REL_L2.
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = M.init_params(cfg2, seed=1, device=dev)
+    b2 = batch_at(cfg2, tcfg, pipeline, 0, dev)
+    mesh3 = make_debug_mesh(*SHARD_MESH)
+    placed3 = shard_tree(p2, param_shardings(p2, mesh3))
+    names = leaf_names(p2)
+    runs2, flips = {}, {}
+
+    def grads_of(key, sharded, act, pins):
+        pins.at, pins.n_split = 0, (n_dp if sharded else 1)
+        M.ACT_DTYPE = act
+        try:
+            bf16 = act == torch.bfloat16
+            if sharded:
+                loss, leaf_tree, grads = sharded_loss_and_grads(cfg2, placed3, b2,
+                                                                bf16_grads=bf16)
+                g = tree_leaves(full_grads(placed3, leaf_tree, grads))
+            else:
+                loss, g = loss_and_grads(cfg2, p2, b2, bf16_grads=bf16)
+                g = [x.float() for x in g]
+        finally:
+            M.ACT_DTYPE = torch.bfloat16
+        runs2[key] = (float(loss), g)
+        if pins.replay:
+            check(pins.at == pins.n_split * len(pins.calls),
+                  f"{key}: {pins.at} routings replayed {len(pins.calls)} recorded ones")
+            flips[key] = sum(pins.flips)
+            pins.flips.clear()
+
+    with PinnedRoutes() as pins:
+        grads_of("u", False, torch.bfloat16, pins)
+        pins.replay = True
+        for key, sharded, act in (("s", True, torch.bfloat16), ("u32", False, torch.float32),
+                                  ("s32", True, torch.float32)):
+            grads_of(key, sharded, act, pins)
+    with PinnedRoutes(pin=False) as own:
+        grads_of("u32_own", False, torch.float32, own)
+        own.replay = True
+        grads_of("s32_own", True, torch.float32, own)
+    g_u, g_s, g_u32, g_s32 = (runs2[k][1] for k in ("u", "s", "u32", "s32"))
+    f32_errs = {n: rel_l2(a, b) for n, a, b in zip(names, g_s32, g_u32)}
+    bf16_raw = {n: rel_l2(a, b) for n, a, b in zip(names, g_s, g_u)}
+    to_f32 = {n: (rel_l2(a, c), rel_l2(b, c)) for n, a, b, c in zip(names, g_s, g_u, g_u32)}
+    own_errs = {n: rel_l2(a, b) for n, a, b in
+                zip(names, runs2["s32_own"][1], runs2["u32_own"][1])}
+    (l_u, _), (l_s, _) = runs2["u32_own"], runs2["s32_own"]
+    own_loss_rel = abs(l_s - l_u) / abs(l_u)
+    for n in names:
+        check(f32_errs[n] <= SHARD_F32_GRAD_REL_L2, f"2-layer {n} in float32: sharded vs "
+              f"unsharded gradient rel L2 {f32_errs[n]:.3g} > {SHARD_F32_GRAD_REL_L2}")
+        if n != "embed":
+            check(bf16_raw[n] <= TRAIN_GRAD_REL_L2, f"2-layer {n} in bf16: sharded vs "
+                  f"unsharded gradient rel L2 {bf16_raw[n]:.3g} > {TRAIN_GRAD_REL_L2}")
+        if flips["s32_own"] == 0:
+            check(own_errs[n] <= SHARD_F32_GRAD_REL_L2, f"2-layer {n} in float32 on its "
+                  f"own routes: sharded vs unsharded gradient rel L2 {own_errs[n]:.3g} > "
+                  f"{SHARD_F32_GRAD_REL_L2}")
+    check(own_loss_rel <= SHARD_F32_LOSS_RTOL, f"2-layer float32 loss on its own routes: "
+          f"sharded {l_s} vs unsharded {l_u}, rel {own_loss_rel:.3g}")
+    del p2, placed3, runs2, g_u, g_s, g_u32, g_s32
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = TRAIN_B * TRAIN_S
+    steady = statistics.median(step_ms[1:])
+    fields = dict(model=cfg.name, mesh=list(SHARD_MESH), mode="tp", zero1=True,
+                  steps=SHARD_STEPS, losses=losses, gnorms=gnorms, step_ms=step_ms,
+                  steady_step_ms=steady, tokens_per_s=tokens / (steady / 1e3),
+                  one_device_step0_loss=one_loss, step0_rel=rel0, repeat_bit_equal=True,
+                  flash_forward_launches=counts["flash_attention"],
+                  flash_backward_launches=counts["flash_attention_bwd"],
+                  flash_forward_launches_per_step=counts["flash_attention"] // SHARD_STEPS,
+                  flash_backward_launches_per_step=counts["flash_attention_bwd"] // SHARD_STEPS,
+                  flash_backward_routes=bwd_routes, collectives_per_step=logs[-1],
+                  max_memory_allocated_bytes=peak,
+                  two_layer=dict(
+                      routes="the unsharded bf16 step's, replayed",
+                      tokens_routed_otherwise=flips, f32_grad_rel_l2=f32_errs,
+                      f32_bound=SHARD_F32_GRAD_REL_L2,
+                      bf16_sharded_vs_unsharded_grad_rel_l2=bf16_raw,
+                      bf16_to_f32_grad_rel_l2_sharded_unsharded=to_f32,
+                      bf16_bound=TRAIN_GRAD_REL_L2, bf16_bound_skips="embed",
+                      own_routes=dict(f32_loss_rel=own_loss_rel, f32_grad_rel_l2=own_errs,
+                                      grads_held=flips["s32_own"] == 0)))
+    emit("sharded_train_path", **fields, seconds=time.perf_counter() - t_phase,
+         budget_s=SHARD_BUDGET_S)
+    return dict(fields, fwd_launches=counts["flash_attention"],
+                bwd_launches=counts["flash_attention_bwd"])
+
+
+def phase_sharded_kernel_times(sh: dict, dev, peaks, errs: dict) -> list[dict]:
+    """The flash forward (with its lse, as the training step launches it)
+    and backward at one tensor-parallel rank's call of sharded_train_path
+    (granite on (2, 4): q (4, 4, 2048, 64) in the model's strided layout,
+    kv 2 heads, causal, bf16): held against their plain versions, timed
+    beside them and beside one SDPA call of the same function, bounded."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.tensor_parallel import kv_heads_for
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
+    from repro_torch.kernels.parity import check_flash_bwd
+    cfg = get_arch(TRAIN_MODEL)
+    n_dp, n_tp = SHARD_MESH
+    B, S, d = TRAIN_B // n_dp, TRAIN_S, cfg.hd
+    Hq = cfg.n_heads // n_tp
+    Hkv = kv_heads_for(0, n_tp, cfg.n_heads, cfg.n_kv_heads)[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def heads(h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
+        return torch.randn((B, S, h, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v = heads(Hq), heads(Hkv), heads(Hkv)
+    dout = torch.randn((B, Hq, S, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    res = check_flash_bwd(q, k, v, dout, dict(causal=True, window=0, softcap=0.0),
+                          "flash at the sharded training call")
+    errs["flash_attention"] = max(errs["flash_attention"], res["out_max_abs_err"])
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], res["max_abs_err"])
+    out, lse = flash_attention_lse(q, k, v)
+    pairs = kept_pairs(S, S, True, 0)
+    fwd_flops = 4.0 * B * Hq * d * pairs
+    steps = sh["steps"]
+    shape = [B, Hq, Hkv, S, S, d]
+    # forward: q, k, v read once; out and lse written once
+    f_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
+    f_ms = cuda_ms(lambda: flash_attention_lse(q, k, v))
+    f_plain = cuda_ms(lambda: attention_lse_ref(q, k, v, causal=True), reps=3, warmup=1)
+    f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                           enable_gqa=True))
+    rows = [table_row("flash_attention[tp_shard]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
+                      "src/repro/kernels/flash_attention/kernel.py:24", sh["fwd_launches"],
+                      res["out_max_abs_err"], f_ms, f_plain, f_lib,
+                      bound(f_bytes, fwd_flops, peaks, rate="bf16"), shape=shape,
+                      call="granite sharded training, one tp rank (causal, bf16, with lse)",
+                      launches_per_step=sh["fwd_launches"] // steps,
+                      lse_max_abs_err=res["lse_max_abs_err"],
+                      library="sdpa (enable_gqa, is_causal)", kept_pairs=pairs,
+                      flops=fwd_flops, bytes=f_bytes)]
+    # backward: q, k, v, out, dout and lse read once; dq, dk, dv written once
+    b_bytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel()
+                   + dout.numel()) + 4 * lse.numel()
+    b_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
+    route = flash_attention_bwd.last_route
+    check(route == "tensor_core", f"the sharded call's backward took {route}")
+    b_plain = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout), reps=3, warmup=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    b_lib = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout, retain_graph=True))
+    rows.append(table_row("flash_attention_bwd[tp_shard]", "cuda",
+                          "src/repro_torch/csrc/flash_bwd_tc.cu",
+                          "src/repro/models/attention.py:133", sh["bwd_launches"],
+                          res["max_abs_err"], b_ms, b_plain, b_lib,
+                          bound(b_bytes, 2.5 * fwd_flops, peaks, rate="bf16"), shape=shape,
+                          call="granite sharded training, one tp rank (causal, bf16)",
+                          backward_route=route, launches_per_step=sh["bwd_launches"] // steps,
+                          replaces_note="no TPU kernel: the reference differentiates "
+                                        "dense_attention through XLA (jax.vjp)",
+                          library="sdpa backward (enable_gqa, is_causal)",
+                          kept_pairs=pairs, flops_bound=2.5 * fwd_flops, bytes=b_bytes))
+    return rows
+
+
 def phase_train_loop(dev) -> None:
     """``train()`` at granite-moe-1b-a400m ``reduced()`` with the reference
     example's settings, clean and with one failure injected at step 30."""
@@ -3465,9 +3854,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000,
                     help="rows of the main-path database (cut only if the time "
                          "limit forces it; the cut is printed)")
-    ap.add_argument("--online-queries", type=int, default=ONLINE_QUERIES,
-                    help="arrivals of the online path's traces (cut only if the "
-                         "phase runs past its budget; the cut is printed)")
+    ap.add_argument("--online-queries", type=int, default=ONLINE_QUERIES_CUT,
+                    help="arrivals of the online path's traces (cut from 96 to make "
+                         "room for the sharded training path; the cut is printed)")
     ap.add_argument("--graph-rows", type=int, default=GRAPH_ROWS,
                     help="rows of the graph path's quickstart database (cut from "
                          "100,000 to make room for the mesh path; the cut is printed)")
@@ -3554,6 +3943,8 @@ def main() -> int:
         phase_train_cpu_vs_card()
         emit("train_phases_done", seconds=time.perf_counter() - t_train,
              budget_s=TRAIN_BUDGET_S)
+        sharded = phase_sharded_train_path(dev, peaks)
+        rows += phase_sharded_kernel_times(sharded, dev, peaks, errs)
     except (SmokeFailure, ParityError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

@@ -1,9 +1,9 @@
 """Architecture configs (the assigned 10 x 4 grid), as in ``repro.configs.base``.
 
 Every architecture is a selectable config; ``reduced()`` yields the
-family-preserving smoke-test configuration. The reference's
-``input_specs`` (shape stand-ins for the distributed dry-run) waits for the
-dry-run's port.
+family-preserving smoke-test configuration. ``input_specs`` builds
+shape-and-dtype stand-ins for every model input (tensors on the ``meta``
+device: no allocation), as the reference's ShapeDtypeStructs.
 """
 from __future__ import annotations
 
@@ -134,3 +134,37 @@ def get_arch(name: str) -> ArchConfig:
 def list_archs() -> list[str]:
     import repro_torch.configs.all_archs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def _spec(shape, dtype):
+    import torch
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, dtype=None, kv_dtype=None) -> dict:
+    """Meta-tensor stand-ins for every model input of (arch, shape).
+
+    train: token batch (+ modality stubs). prefill: token batch. decode:
+    one new token per sequence + the KV/state cache (built by
+    ``repro_torch.models.model.cache_specs``). ``dtype``: the modality
+    inputs' and the cache's (bf16 by default)."""
+    import torch
+    from repro_torch.models import model as M
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        specs: dict = {"tokens": _spec((B, S), i32)}
+        if cfg.family == "encdec":
+            specs["frames"] = _spec((B, S, cfg.d_model), dtype)
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = _spec((B, cfg.n_vision_tokens, cfg.d_model), dtype)
+            specs["tokens"] = _spec((B, S - cfg.n_vision_tokens), i32)
+        return specs
+    # decode: one token + cache of length S
+    return {
+        "tokens": _spec((B, 1), i32),
+        "cache": M.cache_specs(cfg, batch=B, max_len=S, dtype=dtype, kv_dtype=kv_dtype),
+        "pos": _spec((), i32),
+    }

@@ -1,5 +1,7 @@
 """Mesh layer of the port (mirrors repro.distributed): the row-shard layout
-and the collectives of distributed serving."""
+of distributed serving, the model-sharding rules (``sharding``), their
+explicit tensor / sequence / data parallelism (``tensor_parallel``), the
+collectives and elastic reshards (``elastic``)."""
 from repro_torch.distributed.collectives import all_gather, psum, take_rows
 from repro_torch.distributed.sharding import (RowSharding, current_mesh,
                                               row_sharding, shard_act, use_mesh)

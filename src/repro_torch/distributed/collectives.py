@@ -1,12 +1,24 @@
 """Collectives over a single-controller mesh: the port's counterparts of
-``jax.lax.all_gather`` and ``jax.lax.psum`` inside ``shard_map``.
+``jax.lax.all_gather``, ``psum``, ``psum_scatter``, ``pmax`` and
+``all_to_all`` inside ``shard_map``, and of the collectives GSPMD inserts
+for the model's shardings.
 
-Each takes one tensor per rank along ``axis`` (rank r's on its device) and
-delivers the result to ``home``. Each call adds its bytes to ``mesh.log``
-(``Mesh.record``) in the reference's unit (its ``launch/roofline.py:
-collective_bytes`` counts each collective op's per-device RESULT shape):
-an all-gather of S blocks of shape s delivers S * |s| elements, an
-all-reduce |s|. ``launch.roofline.collective_bytes`` reports the log.
+Each takes one tensor per rank along ``axis`` (a mesh axis name or a tuple
+of them; rank r's tensor on its device) and delivers the result to ``home``
+or, for the scattering ones, block r to ``devices[r]``. Each call adds its
+bytes to ``mesh.log`` (``Mesh.record``) in the reference's unit (its
+``launch/roofline.py: collective_bytes`` counts each collective op's
+per-device RESULT shape): an all-gather of S blocks of shape s delivers
+S * |s| elements, an all-reduce |s|, a reduce-scatter |s| / S, an all-to-all
+one rank's new block. ``launch.roofline.collective_bytes`` reports the log.
+``record=False`` runs a collective without logging it: the model code logs
+an op that every data rank's group runs at once only once, as one op of
+the per-device program.
+
+All are plain torch operations across the ranks' tensors (moves, cat,
+sums, slices), so autograd differentiates through them: an all-gather's
+gradient is the reduce-scatter of the blocks' gradients, a psum's the
+gradient delivered to every rank, a reduce-scatter's an all-gather.
 
 ``take_rows`` reads whole rows of a row-sharded matrix from the shards
 that own them (what GSPMD does for a gather from a row-sharded array in
@@ -22,25 +34,102 @@ def _nbytes(t: torch.Tensor) -> int:
     return int(t.numel()) * int(t.element_size())
 
 
-def all_gather(per_rank: list[torch.Tensor], mesh, axis: str,
+def _check(per_rank: list, mesh, axis) -> None:
+    n = 1
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        n *= mesh.shape[a]
+    if len(per_rank) != n:
+        raise ValueError(f"{len(per_rank)} tensors for {n} ranks of {axis!r}")
+
+
+def all_gather(per_rank: list[torch.Tensor], mesh, axis,
                home: torch.device) -> torch.Tensor:
     """(S, *shape) on ``home``: rank r's tensor at index r."""
-    if len(per_rank) != mesh.shape[axis]:
-        raise ValueError(f"{len(per_rank)} tensors for {mesh.shape[axis]} ranks of {axis!r}")
+    _check(per_rank, mesh, axis)
     out = torch.stack([t.to(home) for t in per_rank])
     mesh.record("all-gather", _nbytes(out))
     return out
 
 
-def psum(per_rank: list[torch.Tensor], mesh, axis: str,
-         home: torch.device) -> torch.Tensor:
+def all_gather_dim(per_rank: list[torch.Tensor], mesh, axis, dim: int,
+                   home: torch.device, size: int | None = None, *,
+                   record: bool = True) -> torch.Tensor:
+    """The ranks' blocks joined along ``dim`` on ``home`` (``jax.lax.
+    all_gather(..., tiled=True)``), cut to ``size`` along it when the last
+    block carries padding."""
+    _check(per_rank, mesh, axis)
+    out = torch.cat([t.to(home) for t in per_rank], dim=dim)
+    if size is not None and out.shape[dim] != size:
+        out = out.narrow(dim, 0, size)
+    if record:
+        mesh.record("all-gather", _nbytes(out))
+    return out
+
+
+def psum(per_rank: list[torch.Tensor], mesh, axis,
+         home: torch.device, *, record: bool = True) -> torch.Tensor:
     """The elementwise sum of the ranks' tensors on ``home``, in rank order."""
-    if len(per_rank) != mesh.shape[axis]:
-        raise ValueError(f"{len(per_rank)} tensors for {mesh.shape[axis]} ranks of {axis!r}")
+    _check(per_rank, mesh, axis)
     out = per_rank[0].to(home)
     for t in per_rank[1:]:
         out = out + t.to(home)
-    mesh.record("all-reduce", _nbytes(out))
+    if record:
+        mesh.record("all-reduce", _nbytes(out))
+    return out
+
+
+def pmax(per_rank: list[torch.Tensor], mesh, axis,
+         home: torch.device, *, record: bool = True) -> torch.Tensor:
+    """The elementwise max of the ranks' tensors on ``home`` (an all-reduce)."""
+    _check(per_rank, mesh, axis)
+    out = per_rank[0].to(home)
+    for t in per_rank[1:]:
+        out = torch.maximum(out, t.to(home))
+    if record:
+        mesh.record("all-reduce", _nbytes(out))
+    return out
+
+
+def _blocks(t: torch.Tensor, n: int, dim: int) -> list[torch.Tensor]:
+    """``t`` cut into n ceil-sized blocks along ``dim``, the last zero-padded."""
+    b = -(-t.shape[dim] // n)
+    pad = b * n - t.shape[dim]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t = torch.cat([t, t.new_zeros(shape)], dim=dim)
+    return list(torch.split(t, b, dim=dim))
+
+
+def reduce_scatter(per_rank: list[torch.Tensor], mesh, axis, dim: int,
+                   devices: list, *, record: bool = True) -> list[torch.Tensor]:
+    """The ranks' elementwise sum (in rank order), cut along ``dim`` into one
+    block per rank (ceil-sized, the last zero-padded); block r on
+    ``devices[r]`` (``jax.lax.psum_scatter(..., tiled=True)``)."""
+    _check(per_rank, mesh, axis)
+    home = devices[0]
+    total = per_rank[0].to(home)
+    for t in per_rank[1:]:
+        total = total + t.to(home)
+    out = [b.to(d) for b, d in zip(_blocks(total, len(per_rank), dim), devices)]
+    if record:
+        mesh.record("reduce-scatter", _nbytes(out[0]))
+    return out
+
+
+def all_to_all(per_rank: list[torch.Tensor], mesh, axis, split_dim: int,
+               concat_dim: int, devices: list, *, record: bool = True) -> list[torch.Tensor]:
+    """Rank r cuts its tensor along ``split_dim`` into one block per rank
+    (ceil-sized, the last zero-padded) and sends block s to rank s; rank s
+    joins the blocks it gets along ``concat_dim`` in rank order, on
+    ``devices[s]`` (``jax.lax.all_to_all``, tiled)."""
+    _check(per_rank, mesh, axis)
+    n = len(per_rank)
+    cut = [_blocks(t, n, split_dim) for t in per_rank]
+    out = [torch.cat([cut[r][s].to(devices[s]) for r in range(n)], dim=concat_dim)
+           for s in range(n)]
+    if record:
+        mesh.record("all-to-all", _nbytes(out[0]))
     return out
 
 

@@ -1,0 +1,310 @@
+"""Explicit model parallelism on the single-controller mesh: what GSPMD
+derives from the reference's shardings, written out.
+
+The sharded model path (``models.model.train_loss`` under ``use_mesh`` with
+parameters placed by ``param_shardings``) computes per rank with a
+``ShardCtx``:
+
+- data parallelism: the batch is split over the data axes (all of the mesh's
+  axes but ``model``, flattened to ``n_dp`` data ranks, the first axis
+  major); each data rank runs its rows;
+- tensor parallelism (``mode="tp"``): the ``n_tp = mesh.shape["model"]``
+  ranks of a data rank hold column blocks of the up projections (whole
+  heads of ``wq`` / ``wk`` / ``wv``, d_ff of the MLP and of every expert)
+  and row blocks of the down projections; a row-parallel product ends in a
+  ``psum`` over ``model`` (``row_end``) or, with sequence parallelism, a
+  reduce-scatter over the sequence, whose residual stream an all-gather
+  joins again before the next column-parallel product (``seq_full``);
+- FSDP (``mode="fsdp"``): each data rank gathers a layer's weights whole
+  before it uses them (recorded all-gathers) and computes as one device.
+
+Activations are per-rank ``Act``s (``distributed.sharding``): per data rank
+one tensor (the same on each of its model ranks, which the controller
+computes once) or a tuple of the model ranks' sequence blocks.
+
+Collectives go through ``distributed.collectives`` and are recorded in
+``mesh.log`` once per op of the per-device program (the reference's unit:
+an op that every data rank's group runs at once is one op of each device's
+program), so the log reads like the reference's ``collective_bytes`` of its
+compiled step.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import Act, Blocks, sequence_parallel, tree_map
+
+_STATE = threading.local()
+
+
+class ShardCtx:
+    """The ranks of one sharded computation: ``n_dp`` data ranks (the
+    non-``model`` axes flattened) x ``mesh.shape["model"]`` model ranks;
+    ``n_tp`` of those compute a tensor-parallel product (1 in fsdp mode)."""
+
+    def __init__(self, mesh, mode: str = "tp"):
+        names = tuple(mesh.axis_names)
+        if "model" in names and names[-1] != "model":
+            raise ValueError(f"the model axis must be the mesh's last: {names}")
+        if mode not in ("tp", "fsdp"):
+            raise ValueError(f"unknown sharding mode {mode!r}")
+        self.mesh, self.mode = mesh, mode
+        self.n_model = int(mesh.shape.get("model", 1))
+        dp = tuple(a for a in names if a != "model")
+        self.dp_axis = dp[0] if len(dp) == 1 else dp
+        self.n_dp = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
+        self.grid = mesh.devices.reshape(self.n_dp, self.n_model)
+        self.n_tp = self.n_model if mode == "tp" else 1
+        self.sp = sequence_parallel() and self.n_tp > 1
+
+    @staticmethod
+    def for_params(mesh, params) -> "ShardCtx":
+        """The context of a parameter tree placed by ``param_shardings``
+        (its mode read off the embedding's sharding)."""
+        return ShardCtx(mesh, params["embed"].sharding.mode)
+
+    def dev(self, d: int, m: int = 0) -> torch.device:
+        return self.grid[d, m]
+
+    def devs(self, d: int) -> list:
+        return [self.grid[d, m] for m in range(self.n_tp)]
+
+    # ---- parameters ----------------------------------------------------
+
+    def _grid2(self, leaf: Blocks) -> np.ndarray:
+        return leaf.grid.reshape(self.n_dp, self.n_model)
+
+    def local(self, leaf: Blocks, d: int) -> list:
+        """What each compute rank of data rank ``d`` multiplies with: in tp
+        mode its own block (one per model rank), in fsdp mode the whole
+        tensor gathered."""
+        if self.mode == "tp":
+            g = self._grid2(leaf)
+            return [g[d, m] for m in range(self.n_model)]
+        return [self.full(leaf, d)]
+
+    def full(self, leaf: Blocks, d: int) -> torch.Tensor:
+        """Data rank ``d``'s whole copy of ``leaf`` on its device: its own
+        block when nothing is split, else the blocks gathered (its own data
+        row's first; one recorded all-gather of the whole tensor)."""
+        sh = leaf.sharding
+        if not sh.split(leaf.ndim):
+            return self._grid2(leaf)[d, 0]
+        rows = np.arange(self.n_dp * self.n_model).reshape(self.n_dp, self.n_model)
+        order = [np.unravel_index(i, leaf.grid.shape) for i in
+                 list(rows[d]) + [i for r in range(self.n_dp) if r != d for i in rows[r]]]
+        out = sh.gather(leaf, self.dev(d), first=order)
+        if d == 0:
+            self.mesh.record("all-gather", out.numel() * out.element_size())
+        return out
+
+    def view(self, tree, d: int):
+        """``local`` of every leaf: a tree of per-compute-rank lists."""
+        return tree_map(lambda b: self.local(b, d), tree)
+
+    def full_view(self, tree, d: int):
+        """``full`` of every leaf: data rank d's whole weights."""
+        return tree_map(lambda b: self.full(b, d), tree)
+
+    def gather_model(self, blocks: list, d: int, dim: int, size: int) -> torch.Tensor:
+        """The model ranks' blocks of a column- or row-split weight joined
+        along ``dim`` (cut to ``size``) on data rank d's device."""
+        return C.all_gather_dim(list(blocks), self.mesh, "model", dim, self.dev(d), size,
+                                record=d == 0)
+
+    # ---- activations ---------------------------------------------------
+
+    def split_batch(self, x: torch.Tensor) -> list:
+        """Rows of ``x`` per data rank, each on its rank's device."""
+        B = x.shape[0]
+        if B % self.n_dp:
+            raise ValueError(f"a batch of {B} rows does not split over {self.n_dp} data ranks")
+        b = B // self.n_dp
+        return [x[d * b:(d + 1) * b].to(self.dev(d)) for d in range(self.n_dp)]
+
+    def seq_full(self, xd, d: int) -> torch.Tensor:
+        """Data rank d's whole (B, S, D) activation: sequence blocks are
+        all-gathered over ``model`` (recorded)."""
+        if isinstance(xd, tuple):
+            return C.all_gather_dim(list(xd), self.mesh, "model", 1, self.dev(d),
+                                    record=d == 0)
+        return xd
+
+    def seq_split(self, x: torch.Tensor, d: int):
+        """Data rank d's activation cut into its model ranks' sequence
+        blocks under sequence parallelism (each rank keeps its slice: no
+        collective), when the sequence divides; else as it is."""
+        if not self.sp or x.shape[1] % self.n_tp:
+            return x
+        s = x.shape[1] // self.n_tp
+        return tuple(x[:, m * s:(m + 1) * s].to(self.dev(d, m)) for m in range(self.n_tp))
+
+    def like(self, x: torch.Tensor, xd, d: int):
+        """``x`` (whole) in the layout of ``xd``."""
+        return self.seq_split(x, d) if isinstance(xd, tuple) else x
+
+    def row_end(self, partials: list, d: int, split: bool):
+        """The end of a row-parallel product: the model ranks' partial
+        outputs summed (a psum over ``model``) or, when the residual stream
+        is sequence-split, reduce-scattered over the sequence."""
+        if len(partials) == 1:
+            return self.seq_split(partials[0], d) if split else partials[0]
+        if split:
+            return tuple(C.reduce_scatter(partials, self.mesh, "model", 1, self.devs(d),
+                                          record=d == 0))
+        return C.psum(partials, self.mesh, "model", self.dev(d), record=d == 0)
+
+    @staticmethod
+    def rowwise(fn, xd, ws: list):
+        """``fn(x, w)`` on each part of ``xd`` with the part's rank's ``w``."""
+        if isinstance(xd, tuple):
+            return tuple(fn(x, ws[m]) for m, x in enumerate(xd))
+        return fn(xd, ws[0])
+
+    @staticmethod
+    def add(a, b):
+        if isinstance(a, tuple):
+            return tuple(x + y for x, y in zip(a, b))
+        return a + b
+
+    def psum_data(self, per_rank: list) -> torch.Tensor:
+        """A psum over the data ranks, on data rank 0's device."""
+        if len(per_rank) == 1:
+            return per_rank[0]
+        return C.psum(per_rank, self.mesh, self.dp_axis, self.dev(0))
+
+    def gather_data(self, per_rank: list, dim: int, d: int = 0) -> torch.Tensor:
+        """The data ranks' tensors joined along ``dim``: data rank ``d``'s
+        copy of their all-gather over the data axes, on its device (the op
+        recorded once, with data rank 0's copy)."""
+        if len(per_rank) == 1:
+            return per_rank[0]
+        return C.all_gather_dim(per_rank, self.mesh, self.dp_axis, dim, self.dev(d),
+                                record=d == 0)
+
+
+@contextlib.contextmanager
+def active(ctx: ShardCtx):
+    prev = getattr(_STATE, "ctx", None)
+    _STATE.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _STATE.ctx = prev
+
+
+def current() -> ShardCtx | None:
+    return getattr(_STATE, "ctx", None)
+
+
+def lay_out(mesh, x: Act, layout: str) -> Act:
+    """``shard_act`` of an ``Act``: ``btd`` (the residual stream between
+    blocks) is cut into sequence blocks under sequence parallelism and
+    joined otherwise; other layouts name the per-rank form the model code
+    already computes in (``btv`` vocab-parallel logits, ``moe_ecd`` the
+    capacity split, ``td`` tokens by data rank)."""
+    if layout != "btd":
+        return x
+    ctx = current() or ShardCtx(mesh)
+    parts = []
+    for d, xd in enumerate(x.parts):
+        if isinstance(xd, tuple) == ctx.sp:
+            parts.append(xd)
+        else:
+            parts.append(ctx.seq_split(xd, d) if ctx.sp else ctx.seq_full(xd, d))
+    return Act(parts)
+
+
+# ---- vocab-parallel embedding, logits and loss --------------------------
+
+
+class Vocab:
+    """Data rank d's vocab-parallel view of the embedding: each compute rank
+    holds ``Vb = ceil(V / n_tp)`` vocab rows (the last block zero-padded).
+    ``embed`` is laid out (None, "model") — d_model split — by
+    ``PARAM_RULES``, so an all-to-all over ``model`` turns it into vocab
+    blocks; an untied ``lm_head`` (D, V) is vocab-split already."""
+
+    def __init__(self, ctx: ShardCtx, params: dict, d: int):
+        self.ctx, self.d = ctx, d
+        emb = params["embed"]
+        self.V, D = emb.shape
+        if ctx.n_tp == 1:
+            self.rows = [ctx.full(emb, d)]
+        else:
+            if tuple(emb.spec) != (None, "model"):
+                raise ValueError(f"embed laid out {emb.spec}; tp mode expects (None, 'model')")
+            rows = C.all_to_all(ctx.local(emb, d), ctx.mesh, "model", 0, 1, ctx.devs(d),
+                                record=d == 0)
+            self.rows = [r[:, :D] for r in rows]  # the d_model padding, if any
+        self.Vb = self.rows[0].shape[0]
+        if "lm_head" in params:
+            self.cols = ctx.local(params["lm_head"], d)
+        else:
+            self.cols = [r.T for r in self.rows]
+
+    def lookup(self, tokens: torch.Tensor, split: bool, dtype):
+        """Embedding rows of ``tokens`` (B, S) in ``dtype``: each rank looks
+        up the ids in its vocab block (others give 0) and a psum over
+        ``model`` (a reduce-scatter when ``split``) sums them; exact, as one
+        rank holds each id, so the cast comes first (half the bytes of
+        f32 rows)."""
+        parts = []
+        for m, w in enumerate(self.rows):
+            ids = tokens.to(w.device) - m * self.Vb
+            ok = (ids >= 0) & (ids < self.Vb)
+            e = w[ids.clamp(0, self.Vb - 1)].to(dtype)
+            parts.append(torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                                    device=e.device)))
+        return self.ctx.row_end(parts, self.d, split)
+
+    def logz_gold(self, h: torch.Tensor, targets: torch.Tensor, cap: float):
+        """(logsumexp, gold logit) of data rank d's hidden states ``h``
+        (B, s, D) against ``targets`` (B, s), for ``models.model.
+        _xent_sums``: each rank computes its vocab block's logits (padded
+        rows at -inf); the logsumexp comes from the psum of exp(logits -
+        max) behind a pmax of the block maxima, the gold logit from a psum."""
+        from repro_torch.models.common import softcap
+        ctx, d = self.ctx, self.d
+        if len(self.cols) == 1:
+            logits = softcap(h.float() @ self.cols[0].float(), cap)
+            return (torch.logsumexp(logits, dim=-1),
+                    logits.gather(-1, targets[:, :, None])[..., 0])
+        blocks, golds = [], []
+        for m, w in enumerate(self.cols):
+            lg = softcap(h.float().to(w.device) @ w.float(), cap)
+            col = m * self.Vb + torch.arange(lg.shape[-1], device=lg.device)
+            lg = torch.where(col < self.V, lg, float("-inf"))
+            ids = targets.to(w.device) - m * self.Vb
+            ok = (ids >= 0) & (ids < self.Vb)
+            g = lg.gather(-1, ids.clamp(0, self.Vb - 1)[:, :, None])[..., 0]
+            blocks.append(lg)
+            golds.append(torch.where(ok, g, 0.0))
+        rec = d == 0
+        mx = C.pmax([b.amax(-1).detach() for b in blocks], ctx.mesh, "model", ctx.dev(d),
+                    record=rec)
+        se = C.psum([torch.exp(b - mx.to(b.device)[..., None]).sum(-1) for b in blocks],
+                    ctx.mesh, "model", ctx.dev(d), record=rec)
+        gold = C.psum(golds, ctx.mesh, "model", ctx.dev(d), record=rec)
+        return mx + torch.log(se), gold
+
+
+# ---- tensor-parallel attention -------------------------------------------
+
+
+def kv_heads_for(m: int, n_tp: int, Hq: int, Hkv: int) -> tuple[int, int]:
+    """(first, count) of the kv heads the q heads of model rank ``m`` read
+    (whole q heads per rank, GQA groups of Hq / Hkv)."""
+    if Hq % n_tp:
+        raise ValueError(f"{Hq} q heads do not split over {n_tp} model ranks")
+    hl, G = Hq // n_tp, Hq // Hkv
+    first, last = (m * hl) // G, (m * hl + hl - 1) // G
+    count = last - first + 1
+    if count > 1 and (m * hl % G or hl % G):
+        raise ValueError(f"rank {m}'s {hl} q heads straddle kv groups of {G}")
+    return first, count

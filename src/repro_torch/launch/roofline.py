@@ -1,6 +1,7 @@
 """Modeled HBM traffic of one scan dispatch (the engine's plan-group
-attribution seam; a copy of the reference's ``modeled_scan_bytes``), and
-the collective bytes of a mesh step.
+attribution seam; a copy of the reference's ``modeled_scan_bytes``), the
+collective bytes of a mesh step, and ``HW``: the card's rates that the
+analytic roofline (``launch.report``) divides by.
 
 The reference parses collective bytes out of compiled HLO: the RESULT
 buffer of every all-gather / all-reduce / reduce-scatter / all-to-all /
@@ -9,6 +10,17 @@ collectives (``distributed.collectives``) add the same per-device result
 bytes to ``mesh.log`` as they run, and ``collective_bytes`` reports them.
 """
 from __future__ import annotations
+
+# NVIDIA H100 80GB HBM3 (SXM5), NVIDIA's data sheet at its 700 W limit,
+# dense rates without sparsity. ``link_bw`` is one card's NVLink 4 rate in
+# one direction (18 links, 900 GB/s both ways), the unit of the roofline's
+# per-card collective bytes.
+HW = {
+    "name": "NVIDIA H100 80GB HBM3",
+    "peak_flops": 989e12,   # bf16 tensor-core FLOP/s per card
+    "hbm_bw": 3.35e12,      # HBM3 bytes/s per card
+    "link_bw": 450e9,       # NVLink bytes/s per card, one direction
+}
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")

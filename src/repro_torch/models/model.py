@@ -22,6 +22,9 @@ plus 0.01 x the MoE's load-balancing loss. Under ``cfg.remat`` each block
 recomputed in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of its scan bodies). On the card attention runs through
 the flash kernel both ways (``kernels/flash_attention``: FlashAttentionFn).
+Under ``use_mesh`` ``train_loss`` runs the sharded path at the end of this
+module (``distributed.tensor_parallel``): the same function computed per
+rank of the mesh, each rank's attention in the flash kernel on its heads.
 """
 from __future__ import annotations
 
@@ -31,6 +34,9 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import (Act, Blocks, current_mesh, param_shardings,
+                                              shard_act, shard_tree, tree_map, use_mesh)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
@@ -109,8 +115,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     ``device`` (None: the card), drawn directly in ``dtype``: the tree and
     shapes of ``repro.models.model.init_params`` (whose draws differ: to run
     the reference's weights, carry them with ``convert.model_params_from_jax``).
-    Norm scales start at 0 (rms_norm multiplies by 1 + scale)."""
+    Norm scales start at 0 (rms_norm multiplies by 1 + scale).
+    ``device="meta"`` gives the tree's shapes and dtypes only (the
+    reference's ``jax.eval_shape`` of it), allocating nothing."""
     fam = _family(cfg)
+    if device is not None and torch.device(device).type == "meta":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            fake = init_params(cfg, seed, dtype=dtype, device="cpu")
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     D, L = cfg.d_model, cfg.n_layers
@@ -238,27 +251,18 @@ def _attn(cfg: ArchConfig, p, x, positions, *, window, causal=True,
     written at ``pos`` in place and then read (int8 + scales when
     quantized). kv_override: precomputed (k, v) (cross attention: no rope,
     not causal, every key)."""
-    B, S, D = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-    q = q.reshape(B, S, Hq, hd)
+    q = _proj(x, p, "wq", "bq", Hq, hd)
     scales = {}
     if kv_override is not None:
         k, v = kv_override
         kv_len, q_offset, causal = k.shape[1], 0, False
     else:
-        k = x @ p["wk"].to(dt)
-        v = x @ p["wv"].to(dt)
-        if "bk" in p:
-            k = k + p["bk"].to(dt)
-            v = v + p["bv"].to(dt)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta,
-                       cfg.mrope_sections)
-        v = v.reshape(B, S, Hkv, hd)
+        k = _rope(cfg, _proj(x, p, "wk", "bk", Hkv, hd), positions)
+        v = _proj(x, p, "wv", "bv", Hkv, hd)
+        q = _rope(cfg, q, positions)
+        S = x.shape[1]
         if kv_cache is not None:
             if len(kv_cache) == 4 and kv_cache[2] is not None:  # int8 cache
                 ck, cv, cks, cvs = kv_cache
@@ -277,10 +281,31 @@ def _attn(cfg: ArchConfig, p, x, positions, *, window, causal=True,
             kv_len, q_offset = S, 0
     if not scales:
         k, v = k.to(dt), v.to(dt)
-    out = A.attention(q, k, v, causal=causal, window=window,
-                      softcap=cfg.attn_softcap, q_offset=q_offset, kv_len=kv_len,
-                      **scales)
-    return out.reshape(B, S, Hq * hd) @ p["wo"].to(dt)
+    return _attend(cfg, q, k, v, p["wo"], causal=causal, window=window,
+                   q_offset=q_offset, kv_len=kv_len, **scales)
+
+
+def _proj(x, p, w: str, b, heads: int, hd: int) -> torch.Tensor:
+    """``x @ p[w]`` (+ ``p[b]`` where the layer has that bias) in x's dtype,
+    (B, S, heads, hd): a q, k or v projection, of one device's weights or
+    of one tensor-parallel rank's columns."""
+    y = x @ p[w].to(x.dtype)
+    if b in p:
+        y = y + p[b].to(x.dtype)
+    return y.reshape(*x.shape[:2], heads, hd)
+
+
+def _rope(cfg: ArchConfig, t: torch.Tensor, positions) -> torch.Tensor:
+    return apply_rope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+
+
+def _attend(cfg: ArchConfig, q, k, v, wo, **kw) -> torch.Tensor:
+    """q's attention over (k, v) (the flash kernel on the card), projected by
+    ``wo``: one device's, or one tensor-parallel rank's heads and its rows
+    of ``wo`` (a partial sum)."""
+    B, S = q.shape[:2]
+    out = A.attention(q, k, v, softcap=cfg.attn_softcap, **kw)
+    return out.reshape(B, S, -1) @ wo.to(q.dtype)
 
 
 def _attn_mlp_block(cfg: ArchConfig, p, x, positions, *, window, kv_cache=None,
@@ -342,7 +367,11 @@ def _run_layers(cfg: ArchConfig, stacked, x, positions, *, kv_cache=None,
 
 
 def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens].to(ACT_DTYPE)
+    return _embed_scaled(cfg, params["embed"][tokens].to(ACT_DTYPE))
+
+
+def _embed_scaled(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Embedding rows times sqrt(d_model) where the arch scales them."""
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=ACT_DTYPE, device=x.device)
     return x
@@ -383,15 +412,22 @@ def _mamba_layer(x, p, cfg: ArchConfig, ssm_cache, li: int):
     return x + h
 
 
+def _zamba_groups(cfg: ArchConfig, params, unstack) -> list:
+    """Zamba-2's Mamba-2 layers by group (``unstack`` of the stacked groups,
+    then of the tail's leftover layers); the shared attention block follows
+    each of the first ``n_layers // attn_every`` groups."""
+    mamba = [unstack(group) for group in unstack(params["mamba_groups"])]
+    if cfg.n_layers % cfg.attn_every:
+        mamba.append(unstack(params["mamba_tail"]))
+    return mamba
+
+
 def _zamba_forward(cfg: ArchConfig, params, x, positions, *, cache=None, pos=0):
     n = cfg.attn_every
     G = cfg.n_layers // n
     ssm_cache = None if cache is None else cache["ssm"]      # stacked (L, ...)
     aux = 0.0
-    mamba = [_unstack(group) for group in _unstack(params["mamba_groups"])]
-    if cfg.n_layers - G * n:
-        mamba.append(_unstack(params["mamba_tail"]))
-    for g, layers in enumerate(mamba):
+    for g, layers in enumerate(_zamba_groups(cfg, params, _unstack)):
         for j, p in enumerate(layers):
             x = _remat(cfg, functools.partial(_mamba_layer, cfg=cfg, ssm_cache=ssm_cache,
                                               li=g * n + j), x, p)
@@ -459,11 +495,9 @@ def _whisper_encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tens
 def _cross_kv(cfg: ArchConfig, params, enc: torch.Tensor) -> tuple[list, list]:
     """Each decoder layer's cross k and v, (B, Se, Hkv, hd), from the encoder
     output: two lists of new tensors (the loss takes their gradients)."""
-    B, Se, _ = enc.shape
-    shape = (B, Se, cfg.n_kv_heads, cfg.hd)
     layers = _unstack(params["dec_layers"]["cross"])
-    return ([(enc @ p["wk"].to(enc.dtype)).reshape(shape) for p in layers],
-            [(enc @ p["wv"].to(enc.dtype)).reshape(shape) for p in layers])
+    return ([_proj(enc, p, "wk", None, cfg.n_kv_heads, cfg.hd) for p in layers],
+            [_proj(enc, p, "wv", None, cfg.n_kv_heads, cfg.hd) for p in layers])
 
 
 def _whisper_cross_kv(cfg: ArchConfig, params, enc: torch.Tensor, ck: torch.Tensor,
@@ -480,16 +514,24 @@ def _whisper_cross_kv(cfg: ArchConfig, params, enc: torch.Tensor, ck: torch.Tens
 # --------------------------------------------------------------------------
 
 
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
+                kv_dtype=None) -> dict:
+    """The decode cache of (cfg, batch, max_len) as shapes and dtypes only:
+    tensors on the ``meta`` device (the reference's ShapeDtypeStructs)."""
+    return make_cache(cfg, batch, max_len, dtype, abstract=True, kv_dtype=kv_dtype)
+
+
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
-               kv_dtype=None, device=None) -> dict:
-    """Zeroed decode cache of ``cfg`` on ``device`` (None: the card), the
-    reference's tree: stacked KV (L, B, max_len, Hkv, hd) for dense / moe /
-    vlm (``kv_dtype="int8"`` adds per-(token, head) f32 scales); zamba2's
+               abstract: bool = False, kv_dtype=None, device=None) -> dict:
+    """Zeroed decode cache of ``cfg`` on ``device`` (None: the card;
+    ``abstract``: the ``meta`` device, shapes only), the reference's tree:
+    stacked KV (L, B, max_len, Hkv, hd) for dense / moe / vlm
+    (``kv_dtype="int8"`` adds per-(token, head) f32 scales); zamba2's
     per-layer ``SSMCache`` and per-group KV (G, B, max_len, Hkv, hd);
     xlstm's ``MLSTMCache`` / ``SLSTMCache``; whisper's self KV and its
     cross ``ck`` / ``cv`` of ``cross_len`` encoder positions."""
     fam = _family(cfg)
-    device = resolve_device(device)
+    device = torch.device("meta") if abstract else resolve_device(device)
     hd, Hkv, B, L = cfg.hd, cfg.n_kv_heads, batch, cfg.n_layers
     f32 = torch.float32
 
@@ -564,54 +606,90 @@ def _input(params, batch: dict, key: str) -> torch.Tensor:
     return torch.as_tensor(batch[key], device=params["embed"].device).to(ACT_DTYPE)
 
 
-def _xent_loss(cfg: ArchConfig, params, hidden, targets, mask, chunk: int = 512):
-    """Sequence-chunked cross entropy with a 1e-4 z-loss, as the reference's:
-    at most one (B, chunk, V) block of logits at a time, the mean over the
-    masked-in positions."""
-    B, S, _ = hidden.shape
-    n = max(1, S // chunk)
+LOSS_CHUNK = 512  # sequence positions of logits at a time, as the reference's
+
+
+def _xent_sums(logz_gold, hidden, targets, mask):
+    """(sum of the masked cross entropy + 1e-4 z-loss, sum of the mask) over
+    the sequence chunks, at most one (B, chunk, V) block of logits at a
+    time. ``logz_gold(h, t)`` gives the logsumexp and the gold logit of
+    hidden states ``h`` against targets ``t``: one device's logits
+    (``_logz_gold``) or the vocab-parallel ones (``tensor_parallel.Vocab``)."""
+    S = hidden.shape[1]
+    n = max(1, S // LOSS_CHUNK)
     if S % n:  # the reference's rule: chunks of equal size, else one
         n = 1
-    csize = S // n
+    c = S // n
     tot, cnt = 0.0, 0.0
-    for c in range(n):
-        sl = slice(c * csize, (c + 1) * csize)
-        logits = _logits(cfg, params, hidden[:, sl])
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, targets[:, sl, None])[..., 0]
+    for sl in (slice(i * c, (i + 1) * c) for i in range(n)):
+        logz, gold = logz_gold(hidden[:, sl], targets[:, sl])
         m = mask[:, sl]
         tot = tot + torch.sum((logz - gold) * m + 1e-4 * logz * logz * m)
         cnt = cnt + torch.sum(m)
+    return tot, cnt
+
+
+def _logz_gold(cfg: ArchConfig, params):
+    def fn(h, t):
+        logits = _logits(cfg, params, h)
+        return torch.logsumexp(logits, dim=-1), logits.gather(-1, t[..., None])[..., 0]
+    return fn
+
+
+def _xent_loss(cfg: ArchConfig, params, hidden, targets, mask):
+    """The reference's cross entropy with its z-loss: the mean over the
+    masked-in positions."""
+    tot, cnt = _xent_sums(_logz_gold(cfg, params), hidden, targets, mask)
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def _next_token(tokens: torch.Tensor, n_prefix: int = 0):
+    """(targets, mask) of next-token prediction over ``tokens`` (B, S) behind
+    ``n_prefix`` positions without a loss (qwen2-vl's vision prefix): the
+    targets shifted left, the prefix and the last position masked out."""
+    B, S = tokens.shape
+    dev = tokens.device
+    tgt, mask = tokens, torch.ones((B, S), dtype=torch.float32, device=dev)
+    if n_prefix:
+        tgt = torch.cat([torch.zeros((B, n_prefix), dtype=tokens.dtype, device=dev), tgt], 1)
+        mask = torch.cat([torch.zeros((B, n_prefix), device=dev), mask], 1)
+    tgt = torch.cat([tgt[:, 1:], tgt[:, :1]], dim=1)
+    mask = torch.cat([mask[:, 1:] * mask[:, :-1], torch.zeros_like(mask[:, :1])], dim=1)
+    return tgt, mask
+
+
+def _lm_input(cfg: ArchConfig, x, vis, B: int, S: int, device):
+    """(input, positions, prefix length) of the decoder stack: the token
+    embeddings ``x`` behind qwen2-vl's vision prefix ``vis`` (M-RoPE
+    positions), or ``x`` alone (``vis`` None)."""
+    if vis is None:
+        return x, _positions_for(cfg, B, S, device=device), 0
+    n_vis = vis.shape[1]
+    return (torch.cat([vis, x], dim=1), _vlm_positions(cfg, B, n_vis, S, device=device),
+            n_vis)
 
 
 def train_loss(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     """Next-token loss of ``batch`` (``tokens`` (B, S); whisper's ``frames``,
     qwen2-vl's ``vision_embeds``, as in ``prefill``): a float32 scalar on
-    the params' device, ``+ 0.01 * aux`` for the MoE. No cache is made."""
+    the params' device, ``+ 0.01 * aux`` for the MoE. No cache is made.
+    Under ``use_mesh`` the params are ``Blocks`` (``param_shardings``; full
+    tensors are placed by the tp rules) and the loss is computed on the
+    mesh (``_train_loss_tp``)."""
     fam = _family(cfg)
+    mesh = current_mesh()
+    if mesh is not None:
+        return _train_loss_tp(cfg, params, batch, mesh)
     if fam == "encdec":
         return _whisper_loss(cfg, params, batch)
     tokens = _tokens(params, batch["tokens"])
     B, S = tokens.shape
-    dev = tokens.device
-    x = _embed(cfg, params, tokens)
-    tgt, mask = tokens, torch.ones((B, S), dtype=torch.float32, device=dev)
-    if fam == "vlm":  # the loss on text positions only
-        vis = _input(params, batch, "vision_embeds")
-        n_vis = vis.shape[1]
-        x = torch.cat([vis, x], dim=1)
-        positions = _vlm_positions(cfg, B, n_vis, S, device=dev)
-        tgt = torch.cat([torch.zeros((B, n_vis), dtype=tokens.dtype, device=dev), tokens], 1)
-        mask = torch.cat([torch.zeros((B, n_vis), device=dev), mask], 1)
-    else:
-        positions = _positions_for(cfg, B, S, device=dev)
+    vis = _input(params, batch, "vision_embeds") if fam == "vlm" else None
+    x, positions, n_prefix = _lm_input(cfg, _embed(cfg, params, tokens), vis, B, S,
+                                       tokens.device)
     h, _, aux = forward_core(cfg, params, x, positions)
     h = rms_norm(h, params["ln_final"], cfg.norm_eps)
-    # next-token prediction: targets shifted left
-    tgt = torch.cat([tgt[:, 1:], tgt[:, :1]], dim=1)
-    mask = torch.cat([mask[:, 1:] * mask[:, :-1], torch.zeros_like(mask[:, :1])], dim=1)
-    return _xent_loss(cfg, params, h, tgt, mask) + 0.01 * aux
+    return _xent_loss(cfg, params, h, *_next_token(tokens, n_prefix)) + 0.01 * aux
 
 
 def _whisper_loss(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
@@ -626,10 +704,7 @@ def _whisper_loss(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     x, _ = _run_layers(cfg, params["dec_layers"], x,
                        _positions_for(cfg, B, S, device=tokens.device), cross_kv=(ck, cv))
     x = rms_norm(x, params["ln_final"], cfg.norm_eps)
-    tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    mask = torch.cat([torch.ones((B, S - 1), device=x.device),
-                      torch.zeros((B, 1), device=x.device)], dim=1)
-    return _xent_loss(cfg, params, x, tgt, mask)
+    return _xent_loss(cfg, params, x, *_next_token(tokens))
 
 
 def prefill(cfg: ArchConfig, params, batch: dict):
@@ -690,3 +765,255 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         x, cache, _ = forward_core(cfg, params, x, positions, cache=cache, pos=pos)
     x = rms_norm(x, params["ln_final"], cfg.norm_eps)
     return _logits(cfg, params, x), cache
+
+
+# --------------------------------------------------------------------------
+# sharded training: train_loss under use_mesh (distributed.tensor_parallel)
+# --------------------------------------------------------------------------
+
+
+def _unstack_placed(stacked) -> list:
+    """``_unstack`` of a tree of ``Blocks`` (the layers' per-rank views)."""
+    if isinstance(stacked, dict):
+        per = {k: _unstack_placed(v) for k, v in stacked.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return stacked.unbind()
+
+
+def _remat_act(cfg: ArchConfig, fn, x: Act):
+    """``_remat`` of a block over a per-rank activation; the recomputation
+    (in the backward, outside ``use_mesh``) runs in the forward's mesh and
+    sharding context."""
+    if cfg.remat and torch.is_grad_enabled() and any(
+            t.requires_grad for xd in x.parts for t in (xd if isinstance(xd, tuple) else (xd,))):
+        ctx = TP.current()
+
+        def in_ctx(x):
+            with use_mesh(ctx.mesh), TP.active(ctx):
+                return fn(x)
+        return torch.utils.checkpoint.checkpoint(in_ctx, x, use_reentrant=False)
+    return fn(x)
+
+
+def _kv_proj(cfg: ArchConfig, pm, x, m: int, n: int, gathered, bias: bool = True):
+    """(k, v) of compute rank ``m`` (B, S, count, hd) from its ``x``: its own
+    column blocks ``pm`` of ``wk`` / ``wv`` when the kv heads split evenly
+    over the ``n`` ranks, else the columns of the kv heads its q heads read,
+    cut from the weights ``gathered`` over ``model``."""
+    hd = cfg.hd
+    first, cnt = TP.kv_heads_for(m, n, cfg.n_heads, cfg.n_kv_heads)
+    if gathered is not None:
+        cols = slice(first * hd, (first + cnt) * hd)
+        pm = {k: t[..., cols] for k, t in gathered.items()}
+    return (_proj(x, pm, "wk", "bk" if bias else None, cnt, hd),
+            _proj(x, pm, "wv", "bv" if bias else None, cnt, hd))
+
+
+def _kv_gathered(cfg: ArchConfig, ctx, p, d: int, keys=("wk", "wv", "bk", "bv")):
+    """The kv weights gathered over ``model`` (recorded) when the kv heads do
+    not split evenly over the compute ranks (qwen2-7b's one kv head of
+    ``reduced()`` on two or four ranks); None when each rank's own column
+    blocks hold whole heads."""
+    n = ctx.n_tp
+    if n == 1 or cfg.n_kv_heads % n == 0:
+        return None
+    cols = cfg.n_kv_heads * cfg.hd
+    return {k: ctx.gather_model(p[k], d, p[k][0].ndim - 1, cols) for k in keys if k in p}
+
+
+def _attn_tp(cfg: ArchConfig, ctx, p, xd, positions, d: int, *, window, causal=True,
+             kv_override=None):
+    """``_attn`` of data rank ``d`` with its compute ranks' blocks ``p``:
+    ``wq`` / ``wk`` / ``wv`` (+ biases) column-parallel by whole heads, each
+    rank attending over its own q heads (the flash kernel on the card), and
+    ``wo`` row-parallel, ending in ``row_end``. ``kv_override``: each
+    rank's cross (k, v)."""
+    x = ctx.seq_full(xd, d)
+    n = ctx.n_tp
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} q heads do not split over {n} model ranks")
+    gathered = None if kv_override is not None else _kv_gathered(cfg, ctx, p, d)
+    parts = []
+    for m in range(n):
+        pm = {k: v[m] for k, v in p.items()}
+        xm = x.to(pm["wq"].device)
+        q = _proj(xm, pm, "wq", "bq", cfg.n_heads // n, cfg.hd)
+        if kv_override is not None:
+            k, v = kv_override[0][m], kv_override[1][m]
+            kw = dict(causal=False, kv_len=k.shape[1])
+        else:
+            k, v = _kv_proj(cfg, pm, xm, m, n, gathered)
+            pos = positions.to(xm.device)
+            q, k = _rope(cfg, q, pos), _rope(cfg, k, pos)
+            kw = dict(causal=causal, kv_len=x.shape[1])
+        parts.append(_attend(cfg, q, k.to(x.dtype), v.to(x.dtype), pm["wo"], window=window,
+                             q_offset=0, **kw))
+    return ctx.row_end(parts, d, isinstance(xd, tuple))
+
+
+def _block_tp(x: Act, p, cfg: ArchConfig, positions, *, window, causal=True,
+              cross_kv=None):
+    """``_attn_mlp_block`` over the mesh: attention per data rank, the MLP
+    per data rank or the MoE over all of them (global routing)."""
+    ctx = TP.current()
+    eps = cfg.norm_eps
+
+    def norm(t, w):
+        return rms_norm(t, w, eps)
+
+    views = [ctx.view(p, d) for d in range(ctx.n_dp)]
+    parts = []
+    for d, (xd, pv) in enumerate(zip(x.parts, views)):
+        h = _attn_tp(cfg, ctx, pv["attn"], ctx.rowwise(norm, xd, pv["ln_attn"]),
+                     positions[d], d, window=window, causal=causal)
+        if cfg.sandwich_norm:
+            h = ctx.rowwise(norm, h, pv["ln_attn_post"])
+        xd = ctx.add(xd, h)
+        if "cross" in pv:
+            xd = ctx.add(xd, _attn_tp(cfg, ctx, pv["cross"], ctx.rowwise(norm, xd, pv["ln_cross"]),
+                                      positions[d], d, window=window, kv_override=cross_kv[d]))
+        parts.append(xd)
+    h_in = [ctx.rowwise(norm, xd, pv["ln_mlp"]) for xd, pv in zip(parts, views)]
+    aux = 0.0
+    if cfg.n_experts:
+        if cfg.moe_impl == "dense":
+            raise ValueError("moe_impl='dense' (the single-device oracle) has no sharded "
+                             "path; the mesh runs the sorted dispatch")
+        hs, aux = MOE.moe_tp(ctx, [pv["moe"] for pv in views], h_in, cfg.moe_top_k)
+    else:
+        hs = [F.mlp_tp(ctx, pv["mlp"], hd, cfg.mlp_act, d) for d, (hd, pv) in
+              enumerate(zip(h_in, views))]
+    if cfg.sandwich_norm:
+        hs = [ctx.rowwise(norm, h, pv["ln_mlp_post"]) for h, pv in zip(hs, views)]
+    return shard_act(Act([ctx.add(xd, h) for xd, h in zip(parts, hs)]), "btd"), aux
+
+
+def _run_layers_tp(cfg: ArchConfig, stacked, x: Act, positions, *, causal=True,
+                   cross_kv=None):
+    """``_run_layers`` over the mesh; ``cross_kv[i][d]``: layer i's cross
+    (k, v) per compute rank of data rank d."""
+    aux = 0.0
+    layers = _unstack_placed(stacked)
+    for i, (p, window) in enumerate(zip(layers, _layer_windows(cfg, len(layers)))):
+        block = functools.partial(_block_tp, p=p, cfg=cfg, positions=positions, window=window,
+                                  causal=causal,
+                                  cross_kv=None if cross_kv is None else cross_kv[i])
+        x, a = _remat_act(cfg, block, x)
+        aux = aux + a
+    return x, aux
+
+
+def _gathered_block(x: Act, p, fn):
+    """A block whose weights each data rank gathers whole first (recorded),
+    then runs as one device: the Mamba-2 and xLSTM blocks (their explicit
+    tensor parallelism is not written yet) and every block in fsdp mode."""
+    ctx = TP.current()
+    parts = []
+    for d, xd in enumerate(x.parts):
+        xf = ctx.seq_full(xd, d)
+        parts.append(ctx.like(fn(xf, ctx.full_view(p, d)), xd, d))
+    return Act(parts)
+
+
+def _forward_core_tp(cfg: ArchConfig, params, x: Act, positions):
+    fam = _family(cfg)
+    if fam in ("dense", "moe", "vlm"):
+        return _run_layers_tp(cfg, params["layers"], x, positions)
+    aux = 0.0
+    if fam == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        for g, layers in enumerate(_zamba_groups(cfg, params, _unstack_placed)):
+            for p in layers:
+                fn = functools.partial(_mamba_layer, cfg=cfg, ssm_cache=None, li=0)
+                x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn), x)
+            if g < G:
+                x, a = _block_tp(x, params["shared_attn"], cfg, positions, window=NO_WINDOW)
+                aux = aux + a
+        return x, aux
+    for p in _unstack_placed(params["super"]):  # ssm: xlstm
+        fn = functools.partial(_xlstm_super, cfg=cfg, cache_m=None, cache_s=None)
+        x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn), x)
+    return x, aux
+
+
+def _cross_kv_tp(cfg: ArchConfig, ctx, params, enc: list) -> list:
+    """Per decoder layer, per data rank: each compute rank's cross (k, v)
+    from the encoder output (column-parallel ``wk`` / ``wv``, no bias, as
+    ``_cross_kv``)."""
+    out = []
+    for p in _unstack_placed(params["dec_layers"]["cross"]):
+        per_d = []
+        for d, e in enumerate(enc):
+            pv = ctx.view(p, d)
+            gathered = _kv_gathered(cfg, ctx, pv, d, ("wk", "wv"))
+            kv = [_kv_proj(cfg, {k: pv[k][m] for k in ("wk", "wv")}, e.to(pv["wk"][m].device),
+                           m, ctx.n_tp, gathered, bias=False) for m in range(ctx.n_tp)]
+            per_d.append(([k for k, _ in kv], [v for _, v in kv]))
+        out.append(per_d)
+    return out
+
+
+def _place(params, mesh):
+    """Parameters as ``Blocks`` on ``mesh``: placed ones as they are, full
+    tensors by the tp rules (``param_shardings``)."""
+    if isinstance(params["embed"], Blocks):
+        return params
+    return shard_tree(params, param_shardings(params, mesh))
+
+
+def _train_loss_tp(cfg: ArchConfig, params, batch: dict, mesh) -> torch.Tensor:
+    """``train_loss`` on ``mesh``: the batch split over the data ranks, the
+    blocks tensor-parallel (or gathered, fsdp), the embedding and logits
+    vocab-parallel (``tensor_parallel.Vocab``), and the loss the global
+    masked mean (psums of the data ranks' sums and counts)."""
+    fam = _family(cfg)
+    params = _place(params, mesh)
+    ctx = TP.ShardCtx.for_params(mesh, params)
+    with TP.active(ctx):
+        eps = cfg.norm_eps
+        vocab = [TP.Vocab(ctx, params, d) for d in range(ctx.n_dp)]
+        toks = ctx.split_batch(torch.as_tensor(batch["tokens"], device=ctx.dev(0)).long())
+        B, S = toks[0].shape
+
+        def split(key):
+            return ctx.split_batch(torch.as_tensor(batch[key], device=ctx.dev(0)))
+
+        def embed(d, prefix):
+            # sequence blocks under sequence parallelism, unless a prefix joins
+            e = vocab[d].lookup(toks[d], ctx.sp and not prefix and S % ctx.n_tp == 0,
+                                ACT_DTYPE)
+            return tuple(map(functools.partial(_embed_scaled, cfg), e)) \
+                if isinstance(e, tuple) else _embed_scaled(cfg, e)
+
+        aux = 0.0
+        if fam == "encdec":
+            frames = [f.to(ACT_DTYPE) for f in split("frames")]
+            epos = [_positions_for(cfg, B, f.shape[1], device=f.device) for f in frames]
+            xe, _ = _run_layers_tp(cfg, params["enc_layers"], shard_act(Act(frames), "btd"),
+                                   epos, causal=False)
+            enc = [rms_norm(ctx.seq_full(xd, d), ctx.full(params["ln_enc"], d), eps)
+                   for d, xd in enumerate(xe.parts)]
+            ckv = _cross_kv_tp(cfg, ctx, params, enc)
+            positions = [_positions_for(cfg, B, S, device=ctx.dev(d)) for d in range(ctx.n_dp)]
+            x = shard_act(Act([embed(d, False) for d in range(ctx.n_dp)]), "btd")
+            h, _ = _run_layers_tp(cfg, params["dec_layers"], x, positions, cross_kv=ckv)
+            targets = [_next_token(t) for t in toks]
+        else:
+            vis = split("vision_embeds") if fam == "vlm" else [None] * ctx.n_dp
+            inputs = [_lm_input(cfg, embed(d, v is not None),
+                                None if v is None else v.to(ACT_DTYPE), B, S, ctx.dev(d))
+                      for d, v in enumerate(vis)]
+            h, aux = _forward_core_tp(cfg, params, shard_act(Act([x for x, _, _ in inputs]),
+                                                             "btd"),
+                                      [pos for _, pos, _ in inputs])
+            targets = [_next_token(t, n) for t, (_, _, n) in zip(toks, inputs)]
+        tots, cnts = [], []
+        for d, hd in enumerate(h.parts):
+            hf = rms_norm(ctx.seq_full(hd, d), ctx.full(params["ln_final"], d), eps)
+            tot, cnt = _xent_sums(functools.partial(vocab[d].logz_gold, cap=cfg.logit_softcap),
+                                  hf, *targets[d])
+            tots.append(tot)
+            cnts.append(cnt)
+        loss = ctx.psum_data(tots) / torch.clamp(ctx.psum_data(cnts), min=1.0)
+        return loss + 0.01 * aux if fam != "encdec" else loss

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
 
+CAPACITY_FACTOR = 1.25  # routed pairs an expert takes, over its even share
+
 
 def init_moe(generator: torch.Generator, d_model: int, n_experts: int,
              expert_dff: int, top_k: int, dtype=torch.float32,
@@ -37,14 +39,19 @@ def init_moe(generator: torch.Generator, d_model: int, n_experts: int,
     }
 
 
-def _router(params, x2d: torch.Tensor, top_k: int):
-    logits = x2d.float() @ params["router"].float()
+def _route(router: torch.Tensor, x2d: torch.Tensor, top_k: int):
+    """(normalised weights (T, K), experts (T, K), probs (T, E)) of ``x2d``."""
+    logits = x2d.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k puts the lower expert first among equal probabilities;
     # torch.topk promises no order, a stable descending sort does
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, experts = vals[:, :top_k], idx[:, :top_k]
-    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    return weights / weights.sum(-1, keepdim=True).clamp(min=1e-9), experts, probs
+
+
+def _router(params, x2d: torch.Tensor, top_k: int):
+    weights, experts, probs = _route(params["router"], x2d, top_k)
     # load-balancing auxiliary loss (Switch-style)
     E = probs.shape[-1]
     me = probs.mean(dim=0)
@@ -89,7 +96,8 @@ def moe_dense(params, x: torch.Tensor, top_k: int):
     return y.reshape(B, S, D), aux
 
 
-def moe_sorted(params, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25):
+def moe_sorted(params, x: torch.Tensor, top_k: int,
+               capacity_factor: float = CAPACITY_FACTOR):
     """Production path: sort-and-pack dispatch with per-expert capacity."""
     B, S, D = x.shape
     E = params["router"].shape[-1]
@@ -97,38 +105,55 @@ def moe_sorted(params, x: torch.Tensor, top_k: int, capacity_factor: float = 1.2
     weights, experts, aux = _router(params, x2, top_k)
     order, e_sorted, t_sorted, pos, keep, cap = _dispatch(experts, E, capacity_factor)
     w_sorted = weights.reshape(-1)[order]
-    dt = x.dtype
-    # a dropped pair writes slot ``cap``, which no expert reads: every kept
-    # (expert, slot) is written once
-    buf = torch.zeros((E, cap + 1, D), dtype=dt, device=x.device)
-    buf[e_sorted, torch.where(keep, pos, cap)] = x2[t_sorted]
-    buf = buf[:, :cap]
-    h = F.silu(torch.bmm(buf, params["w_gate"].to(dt)))
-    y_buf = torch.bmm(h, params["w_down"].to(dt))                 # (E, cap, D)
-    y_pairs = y_buf[e_sorted, pos.clamp(max=cap - 1)]
-    y_pairs = torch.where(keep[:, None], y_pairs, 0.0) * w_sorted[:, None].to(dt)
-    return _combine(y_pairs, order, B * S).reshape(B, S, D), aux
+    buf = _pack(x2, e_sorted, t_sorted, torch.where(keep, pos, cap), E, cap)
+    y_buf = _experts(buf, params["w_gate"], params["w_down"])     # (E, cap, D)
+    rows = _pair_rows(order, B * S)
+    return _combine(y_buf, e_sorted, pos, keep, w_sorted, rows).reshape(B, S, D), aux
 
 
-def _combine(y_pairs: torch.Tensor, order: torch.Tensor, T: int) -> torch.Tensor:
-    """Sum each token's K weighted expert outputs (given in the sorted pair
-    order ``order``) in float32 in the order of its experts' ids, then round
-    once to the activation dtype: the bits of the CPU's ``index_add_`` of
-    the sorted pairs, with no atomics on the card, so a training step
-    repeats bit for bit."""
+def _pack(x2: torch.Tensor, e_sorted, t_sorted, slot, E: int, cap: int) -> torch.Tensor:
+    """The (E, cap, D) buffer of the sorted pairs' tokens at their slots. A
+    pair whose slot is ``cap`` (dropped, or another rank's) writes a spare
+    slot that no expert reads: every kept (expert, slot) is written once."""
+    buf = torch.zeros((E, cap + 1, x2.shape[-1]), dtype=x2.dtype, device=x2.device)
+    buf[e_sorted, slot] = x2[t_sorted]
+    return buf[:, :cap]
+
+
+def _experts(buf: torch.Tensor, w_gate, w_down) -> torch.Tensor:
+    """Each expert's SiLU MLP over its slots (batched by expert)."""
+    h = F.silu(torch.bmm(buf, w_gate.to(buf.dtype)))
+    return torch.bmm(h, w_down.to(buf.dtype))
+
+
+def _pair_rows(order: torch.Tensor, T: int) -> torch.Tensor:
+    """(T, K): where each token's K routed pairs sit in the sorted order
+    ``order``, by expert id, lowest first."""
     K = order.numel() // T
     at = torch.empty_like(order)
     at[order] = torch.arange(order.numel(), device=order.device)
-    # a token's pairs sit in the sorted order by expert id, lowest first
-    parts = y_pairs[at.reshape(T, K).sort(dim=1).values].float()    # (T, K, D)
+    return at.reshape(T, K).sort(dim=1).values
+
+
+def _combine(y_buf: torch.Tensor, e_sorted, pos, keep, w_sorted,
+             rows: torch.Tensor) -> torch.Tensor:
+    """(T, D): the weighted expert outputs of the tokens whose pairs sit at
+    ``rows`` (``_pair_rows``) summed in float32 in the order of their
+    experts' ids, then rounded once to the activation dtype: the bits of
+    the CPU's ``index_add_`` of the sorted pairs, with no atomics on the
+    card, so a training step repeats bit for bit."""
+    cap, dt = y_buf.shape[1], y_buf.dtype
+    y_pairs = y_buf[e_sorted[rows], pos[rows].clamp(max=cap - 1)]       # (T, K, D)
+    parts = (torch.where(keep[rows][..., None], y_pairs, 0.0)
+             * w_sorted[rows][..., None].to(dt)).float()
     y = torch.zeros_like(parts[:, 0])
-    for j in range(K):
+    for j in range(rows.shape[1]):
         y = y + parts[:, j]
-    return y.to(y_pairs.dtype)
+    return y.to(dt)
 
 
 def dropped(experts: torch.Tensor, n_experts: int,
-            capacity_factor: float = 1.25) -> torch.Tensor:
+            capacity_factor: float = CAPACITY_FACTOR) -> torch.Tensor:
     """(T, top_k) bool on the experts' device: True where ``moe_sorted``
     drops the token's k-th routed expert (``experts``, the router's (T, K)
     choice) over its capacity. No host sync."""
@@ -142,3 +167,68 @@ def moe(params, x: torch.Tensor, top_k: int, impl: str = "sorted"):
     if impl == "dense":
         return moe_dense(params, x, top_k)
     return moe_sorted(params, x, top_k)
+
+
+def moe_tp(ctx, views: list, xds: list, top_k: int):
+    """``moe_sorted`` over the mesh's data ranks (``distributed.
+    tensor_parallel``): ``views[d]`` holds data rank d's compute ranks'
+    blocks (router replicated, expert d_ff split over ``model``), ``xds[d]``
+    its activation. Returns (per data rank outputs in its activation's
+    layout, aux loss).
+
+    Routing and capacity are global, as on one device: each data rank
+    routes its own tokens, the (T, K) choices and weights and the tokens
+    are all-gathered over the data axes, and one dispatch over all T tokens
+    gives every routed pair its expert slot; so the drops are one device's.
+    The capacity axis of the (E, cap, D) buffer is split over the data
+    ranks (the reference's ``moe_ecd`` layout): each data rank fills its
+    slots, runs the experts on them with its model ranks' d_ff blocks (a
+    psum over ``model``), and the filled buffer is all-gathered over the
+    data axes; each data rank then combines its own tokens' pairs. The
+    load-balancing loss is the global mean: psums of the ranks'
+    probability and first-choice sums.
+
+    The controller computes the all-gathered routing and the dispatch once,
+    on data rank 0's device, and each data rank reads its copy of them:
+    what every rank of a multi-process mesh would compute alike. On a mesh
+    of several devices, data rank 0's device thus holds the global batch's
+    tokens once more (a debug mesh's ranks share one device)."""
+    n_dp = ctx.n_dp
+    xs = [ctx.seq_full(xd, d) for d, xd in enumerate(xds)]
+    B, S, D = xs[0].shape
+    x2 = [x.reshape(B * S, D) for x in xs]
+    T = n_dp * B * S
+    E = views[0]["router"][0].shape[-1]
+    routed, p_sums, c_sums = [], [], []
+    for d, x in enumerate(x2):
+        w, e, probs = _route(views[d]["router"][0], x, top_k)
+        routed.append((w, e))
+        p_sums.append(probs.sum(dim=0))
+        c_sums.append(F.one_hot(e[:, 0], E).float().sum(dim=0))
+    me = ctx.psum_data(p_sums) / T
+    ce = ctx.psum_data(c_sums) / T
+    aux = E * torch.sum(me * ce)
+    weights = ctx.gather_data([w for w, _ in routed], 0)
+    experts = ctx.gather_data([e for _, e in routed], 0)
+    X = ctx.gather_data(x2, 0)
+    order, e_sorted, t_sorted, pos, keep, cap = _dispatch(experts, E, CAPACITY_FACTOR)
+    w_sorted = weights.reshape(-1)[order]
+    rows = _pair_rows(order, T).reshape(n_dp, B * S, -1)
+    cb = -(-cap // n_dp)  # each data rank's capacity slots
+    y_bufs = []
+    for d in range(n_dp):
+        dev = ctx.dev(d)
+        mine = keep & (torch.div(pos, cb, rounding_mode="floor") == d)
+        buf = _pack(X.to(dev), e_sorted.to(dev), t_sorted.to(dev),
+                    torch.where(mine, pos - d * cb, cb).to(dev), E, cb)
+        parts = [_experts(buf.to(wg.device), wg, wd)
+                 for wg, wd in zip(views[d]["w_gate"], views[d]["w_down"])]
+        y_bufs.append(ctx.row_end(parts, d, False))
+    out = []
+    for d, xd in enumerate(xds):
+        dev = ctx.dev(d)
+        y_buf = y_bufs[0] if n_dp == 1 else ctx.gather_data(y_bufs, 1, d)[:, :cap]
+        y = _combine(y_buf, e_sorted.to(dev), pos.to(dev), keep.to(dev), w_sorted.to(dev),
+                     rows[d].to(dev))
+        out.append(ctx.like(y.reshape(B, S, D), xd, d))
+    return out, aux

@@ -261,6 +261,7 @@ class MicroBatcher:
                         obs.span_at("plan_cache", t_sub, t_plan1, parent=esp)
                     obs.span_at("semcache_probe", t_p0, t_p1, parent=root,
                                 hit=ids is not None)
+                    t_enq = t_p1  # the probe's end opens flush_wait
                 if ids is not None:  # hit: complete now, bypass the flush
                     self.stats.cache_hits += 1
                     ticket.ids = ids
@@ -270,7 +271,7 @@ class MicroBatcher:
                     ticket.t_done_wall = time.time()
                     if obs.enabled:
                         obs.counter("semcache_hits", tenant=str(tenant))
-                        obs.end_trace(ticket.trace)
+                        obs.end_trace(ticket.trace, t=t_p1)
                         obs.observe("ticket_wall_ms", ticket.wall_wait_ms,
                                     tenant=str(tenant))
                     return ticket
@@ -278,14 +279,15 @@ class MicroBatcher:
                     self.stats.cache_misses += 1
                     ticket.cache_token = token
             elif obs.enabled:
-                esp = obs.span_at("enqueue", t_sub, time.perf_counter(),
-                                  parent=ticket.trace.root)
+                t_enq = time.perf_counter()
+                esp = obs.span_at("enqueue", t_sub, t_enq, parent=ticket.trace.root)
                 if t_plan1 > t_sub:
                     obs.span_at("plan_cache", t_sub, t_plan1, parent=esp)
             if obs.enabled:
-                # flush_wait opens here; _finish_batch closes it when the
-                # ticket's flush starts executing
-                ticket.trace.marks["enqueued"] = time.perf_counter()
+                # flush_wait opens at the clock reading that closed the last
+                # stage (no untimed gap between stages, whatever the load);
+                # _execute_batch closes it when the ticket's flush starts
+                ticket.trace.marks["enqueued"] = t_enq
             q = self._queues.get(tenant)
             if q is None:
                 q = self._queues[tenant] = deque()

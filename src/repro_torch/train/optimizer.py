@@ -62,16 +62,28 @@ def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
     ``lr`` is a float or a float32 scalar tensor."""
     grads, gnorm = clip_by_global_norm(
         tree_unflatten(grads, [g.float() for g in tree_leaves(grads)]), max_grad_norm)
-    g = tree_leaves(grads)
     step = state.step + 1
+    new, m, v = adamw_apply(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
+                            tree_leaves(state.v), step, lr, b1=b1, b2=b2, eps=eps,
+                            weight_decay=weight_decay)
+    state = AdamWState(step=step, m=tree_unflatten(state.m, m), v=tree_unflatten(state.v, v))
+    return tree_unflatten(params, new), state, gnorm
+
+
+def adamw_apply(p: list, g: list, m: list, v: list, step, lr, *, b1: float = 0.9,
+                b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1):
+    """The elementwise AdamW update of lists of params (any dtype), their
+    clipped float32 gradients and moments, at the new ``step`` (1 on the
+    first update): (new params in their dtypes, new m, new v). Each element
+    is computed alone, so a block of a sharded tensor updates as the whole
+    tensor's slice."""
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    m = torch._foreach_mul(tree_leaves(state.m), b1)
+    m = torch._foreach_mul(m, b1)
     torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
-    v = torch._foreach_mul(tree_leaves(state.v), b2)
+    v = torch._foreach_mul(v, b2)
     torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
-    del grads, g
-    p = tree_leaves(params)
+    del g
     p32 = [x.float() for x in p]
     denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
     torch._foreach_add_(denom, eps)
@@ -80,9 +92,7 @@ def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
     del denom
     torch._foreach_add_(delta, torch._foreach_mul(p32, weight_decay))
     torch._foreach_mul_(delta, lr)
-    new = [(a - b).to(x.dtype) for a, b, x in zip(p32, delta, p)]
-    state = AdamWState(step=step, m=tree_unflatten(state.m, m), v=tree_unflatten(state.v, v))
-    return tree_unflatten(params, new), state, gnorm
+    return [(a - b).to(x.dtype) for a, b, x in zip(p32, delta, p)], m, v
 
 
 def cosine_schedule(step, *, peak_lr: float = 3e-4, warmup: int = 100,
@@ -98,8 +108,27 @@ def cosine_schedule(step, *, peak_lr: float = 3e-4, warmup: int = 100,
 
 
 def zero1_shardings(param_shardings, params, mesh):
-    """The reference's ZeRO-1 layout of the moments over the data axis: not
-    ported yet (ROADMAP.md, Queue 1 item 6b: model sharding)."""
-    raise NotImplementedError(
-        "zero1_shardings is not ported yet (ROADMAP.md, Queue 1 item 6b: model "
-        "sharding, with elastic.py); training runs on one card")
+    """Shard optimizer moments additionally over the data axis (ZeRO-1):
+    pick the first un-sharded axis divisible by the data-parallel size. A
+    tree of ``NamedSharding``s of the port (``distributed.sharding``), each
+    moment's spec the reference's."""
+    from repro_torch.distributed.sharding import NamedSharding, P, tree_map
+    data = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+
+    def widen(sh, leaf):
+        spec = list(sh.spec) + [None] * (leaf.ndim - len(sh.spec))
+        used = set()
+        for entry in spec:
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                used.add(a)
+        if used & {"data", "pod"}:
+            return sh  # already data-sharded (FSDP mode)
+        for ax in range(leaf.ndim):
+            if spec[ax] is None and leaf.shape[ax] % max(data, 1) == 0 \
+                    and leaf.shape[ax] >= data > 1:
+                axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+                spec[ax] = tuple(axes) if len(axes) > 1 else axes[0]
+                break
+        return NamedSharding(mesh, P(*spec), getattr(sh, "mode", "tp"))
+
+    return tree_map(widen, param_shardings, params)

@@ -239,6 +239,57 @@ def test_family_on_card_equals_cpu(cuda_device, name):
         assert bool((short[pick != want.argmax(-1)] <= 0.35).all()), short
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "qwen2-7b"])
+def test_sharded_step_on_card_equals_cpu(cuda_device, name):
+    """One sharded step (tp, ZeRO-1 moments) of a ``reduced()`` config on a
+    (2, 4) debug mesh of the card (each rank's attention in the flash
+    kernels, both ways) against the same mesh on the CPU (the plain
+    versions): loss within rtol 0.05 / atol 0.1, gnorm within 5%; every
+    flash forward has its backward; a repeat on the card is bit-equal."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.sharding import gather_tree, param_shardings, shard_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import zero1_shardings
+    from repro_torch.train.step import make_sharded_train_step, sharded_adamw_init
+    cfg = get_arch(name).reduced()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 96)).astype(np.int32)}
+    params = M.init_params(cfg, seed=0, device="cpu")
+    step = make_sharded_train_step(cfg, peak_lr=1e-3, total_steps=100)
+    out = {}
+    for dev, runs in (("cpu", 1), (cuda_device, 2)):
+        mesh = make_debug_mesh(2, 4, device=dev)
+        tree = _tree_to(params, dev)
+        psh = param_shardings(tree, mesh)
+        reset_launch_counts()
+        res = []
+        for _ in range(runs):
+            st = sharded_adamw_init(shard_tree(tree, psh), zero1_shardings(psh, tree, mesh))
+            p2, _, m = step(shard_tree(tree, psh), st._replace(step=st.step + 5), batch)
+            res.append(({k: float(v) for k, v in m.items()}, gather_tree(p2)))
+        out[str(dev)] = res
+    counts = launch_counts()
+    assert counts["flash_attention"] > 0
+    assert counts["flash_attention_bwd"] == counts["flash_attention"]
+    (card, p_card), (again, p_again) = out["cuda"]
+    cpu = out["cpu"][0][0]
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=0.05, atol=0.1)
+    np.testing.assert_allclose(card["gnorm"], cpu["gnorm"], rtol=0.05)
+    assert card == again
+    assert all(torch.equal(p_card[k], p_again[k]) for k in ("embed", "ln_final"))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(p_card), _leaves(p_again)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}

@@ -438,12 +438,26 @@ def test_meshes_and_their_devices():
 
 
 def test_shard_act_is_the_identity_outside_a_mesh_only(mesh):
-    x = torch.ones(2, 3, 4)
+    """Outside a mesh the identity; inside one a full tensor is placed by
+    its layout's spec (batch over "data"), and with sequence parallelism
+    ``btd`` becomes ``btd_sp`` (sequence over "model")."""
+    from repro_torch.distributed.sharding import set_sequence_parallel
+    x = torch.arange(4 * 4 * 3, dtype=torch.float32).reshape(4, 4, 3)
     assert shard_act(x, "btd") is x and current_mesh() is None
+    mesh = make_debug_mesh(2, 2, device="cpu")
     with use_mesh(mesh):
         assert current_mesh() is mesh
-        with pytest.raises(NotImplementedError, match="item 6"):
-            shard_act(x, "btd")
+        placed = shard_act(x, "btd")
+        assert tuple(placed.spec) == ("data", None, None)
+        assert placed.grid[1, 0] is placed.grid[1, 1]  # replicated over model
+        assert torch.equal(placed.grid[1, 0], x[2:]) and torch.equal(placed.gather(), x)
+        set_sequence_parallel(True)
+        try:
+            sp = shard_act(x, "btd")
+        finally:
+            set_sequence_parallel(False)
+        assert tuple(sp.spec) == ("data", "model", None)
+        assert torch.equal(sp.grid[1, 1], x[2:, 2:]) and torch.equal(sp.gather(), x)
     assert current_mesh() is None
 
 

@@ -117,8 +117,18 @@ def test_adamw_update_equals_reference():
 
 
 def test_zero1_shardings_names_the_model_sharding_item():
-    with pytest.raises(NotImplementedError, match="model sharding"):
-        zero1_shardings(None, None, None)
+    """ZeRO-1 of the model sharding: each moment's spec widens its first
+    free dim that divides the data axis; a data-sharded (fsdp) spec stays."""
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(4, 2, device="cpu")
+    params = {"embed": torch.zeros(64, 16), "ln": torch.zeros(6), "wq": torch.zeros(8, 16)}
+    z = zero1_shardings(param_shardings(params, mesh), params, mesh)
+    assert tuple(z["embed"].spec) == ("data", "model")
+    assert tuple(z["ln"].spec) == (None,)  # 6 rows do not divide 4
+    assert tuple(z["wq"].spec) == ("data", "model")
+    f = param_shardings(params, mesh, "fsdp")
+    assert zero1_shardings(f, params, mesh)["embed"] is f["embed"]
 
 
 # ---- the counterparts of tests/test_train_substrate.py ----------------------------
