@@ -64,7 +64,7 @@ into ``build/kernels/``), then:
      filled to 200) and the torch DP against the Python DP (phase
      ``planner_dp``);
   8. the online runtime on that tuned database (phase ``online_path``,
-     ``--online-queries`` arrivals, 64 by default: cut from 96, printed as
+     ``--online-queries`` arrivals, 48 by default: cut from 96, printed as
      a ``scale_cut``; a third of them exact re-arrivals):
      ``OnlineRuntime`` sync, async on a worker pool with staged uploads and
      without (ids equal), with the semantic cache (every re-arrival hits,
@@ -191,7 +191,31 @@ into ``build/kernels/``), then:
      each side's own routes in float32 the loss (1e-5 relative) and, where
      no token routes otherwise, every gradient (1e-4); then the flash forward
      (with lse) and backward at one rank's call, held, timed beside their
-     plain versions and SDPA, and bounded.
+     plain versions and SDPA, and bounded;
+  19. serving on the mesh (phase ``sharded_serve_path``): granite-moe-3b-a800m
+     at full width and depth on ``make_debug_mesh(2, 4)`` (each rank 6 q / 2
+     kv heads) through ``make_prefill_step`` / ``make_serve_step`` under
+     ``use_mesh``: a prefill of 2 x 2,048 tokens, the cache grown to 2,064
+     positions (its sequence split over the 4 model ranks), 16 decode steps
+     (each sequence shard through the flash kernel's split-KV route with its
+     lse, combined by a pmax and two psums), against one device's run on its
+     replayed MoE routes and greedy tokens (families_path's tolerance and
+     near-tie rule), a repeat bit-equal, flash launches by route, the
+     collectives by kind, prefill s, decode ms a step and peak memory; a
+     ``shard_seq`` decode at batch 1 over a 32,768-position cache spread over
+     all 8 ranks (cut from long_500k's 524,288, printed as ``scale_cut``);
+     then the flash kernel at one rank's prefill call and one shard's decode
+     call, held, timed beside its plain version and SDPA, and bounded;
+  20. the scan sweep (phase ``scan_sweep``): ``launch.roofline.
+     streaming_vs_twopass(measure=True)``: the modeled bytes of the streaming
+     and two-pass scans and both timed per N (2,048 to 262,144; B 128, d 128,
+     k 16, every 64th row dead), bit-equal at each N, the acceptance (at the
+     largest N the two-pass score block exceeds the 50 MB L2 and moves >= 2x
+     the bytes); the three kernels at the largest N held, timed and bounded;
+  21. the dry-run (phase ``dryrun``): ``launch.dryrun.run_cell`` on the meta
+     16 x 16 mesh for granite-moe-1b-a400m's decode_32k and prefill_32k, and
+     the counting pass over train_path's step on meta, its FLOPs beside the
+     analytic ``flops_per_step``.
 
 Any failure exits non-zero. The last three lines are the card's name and
 power limit, the kernel table and ``{"ok": true, "device": {...}}``.
@@ -1125,10 +1149,12 @@ def phase_slice_kernel_times(main: dict, filt: dict, mut: dict, probe: dict, dev
 # ---- the online runtime on the card --------------------------------------------------
 
 ONLINE_QUERIES = 96      # the online trace's arrivals: 2/3 fresh, 1/3 exact re-arrivals
-# the arrivals run by default, cut to make room for sharded_train_path (the
-# tenant path's DRR-vs-FIFO check needs its 96 arrivals; this phase's checks
-# hold at 64, a CPU rehearsal shows)
-ONLINE_QUERIES_CUT = 64
+# the arrivals run by default, cut to make room for sharded_train_path (to
+# 64) and then for sharded_serve_path, scan_sweep and dryrun (to 48); the
+# tenant path's DRR-vs-FIFO check needs its 96 arrivals, this phase's
+# checks hold at 48 (a CPU rehearsal at 4,000 rows fails the same
+# CPU-only launch checks at 48 as at 64, and nothing else)
+ONLINE_QUERIES_CUT = 48
 ONLINE_BUDGET_S = 250.0  # the phase's share of the script's time limit
 # the drift phase's "night" traffic: column 0 (glove25), which no bisimple
 # query touches, with columns the day traffic also uses
@@ -1215,7 +1241,8 @@ def phase_online_path(main: dict, dev, queries: int) -> dict:
     mint = replace(r["tuner"], attributes=None, _selest=None)
     if queries != ONLINE_QUERIES:
         emit("scale_cut", online_queries=queries, online_queries_default=ONLINE_QUERIES,
-             why="room for sharded_train_path in the time limit")
+             why="room for the sharded training and serving, scan sweep and dry-run "
+                 "phases in the time limit")
     rss0 = host_rss_gib()
     peak0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     trace, n_rep = online_trace(db, wl, queries)
@@ -3843,6 +3870,370 @@ def phase_train_cpu_vs_card() -> None:
     emit("train_cpu_vs_card_done", seconds=time.perf_counter() - t0)
 
 
+# ---- serving on the mesh, the scan sweep and the dry-run ----------------------------
+
+SERVE_MODEL = "granite-moe-3b-a800m"  # FAMILY_RUNS' MoE, which families_path serves on one card
+SERVE_MESH = (2, 4)  # (data, model): each rank holds 6 of the 24 q heads and 2 of the 8 kv
+SERVE_S = 2048       # PROMPTS x SERVE_S prompt tokens, then DECODE_STEPS greedy steps
+SERVE_LONG = 32768   # the shard_seq decode's cache: decode_32k's length, cut from
+LONG_500K = 524288   # long_500k's (the long-context layout's own shape) by the time limit
+SERVE_BUDGET_S = 60.0  # the three new phases' share of the script's time limit
+
+
+def phase_sharded_serve_path(dev, peaks) -> dict:
+    """granite-moe-3b-a800m at full width and depth served on
+    ``make_debug_mesh(2, 4)`` of the card through ``make_prefill_step`` /
+    ``make_serve_step`` under ``use_mesh``: a prefill of PROMPTS x SERVE_S
+    tokens (each rank's attention in the flash kernel on its heads, the
+    cache's sequence split over the 4 model ranks by an all-to-all), the
+    cache grown to SERVE_S + DECODE_STEPS positions (a multiple of 4), then
+    DECODE_STEPS decode steps (flash-decoding: each sequence shard through
+    the kernel's split-KV route with its lse, combined by a pmax and two
+    psums). One device's run of the same steps comes first: its MoE routes
+    are replayed on the mesh (``PinnedRoutes``: the tensor-parallel psums
+    round the router's input differently) and its greedy tokens fed to
+    both; every logit row is held to families_path's tolerance and near-tie
+    rule, and a repeat of the prefill and the first step is bit-equal. Then
+    one ``shard_seq`` decode at batch 1 over a SERVE_LONG cache whose
+    sequence spreads over all 8 ranks, against one device's."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.sharding import (cache_shardings, param_shardings,
+                                                  shard_tree, use_mesh)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left < 1 << 30, f"{left} bytes still allocated before sharded serving")
+    t_phase = time.perf_counter()
+    cfg = get_arch(SERVE_MODEL)
+    B, S, n = PROMPTS, SERVE_S, DECODE_STEPS
+    n_dp, n_tp = SERVE_MESH
+    L = S + n
+    check(L % n_tp == 0, f"cache of {L} does not split over {n_tp} model ranks")
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    prompt = prompt_of(family_batch(cfg, B, S, seed=0, device=dev), S)
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    routes = PinnedRoutes()
+    with routes, torch.no_grad():
+        want, cache = prefill_step(params, prompt)
+        cache = M.grow_cache(cache, L)
+        wants, toks = [want], [want.argmax(-1)]
+        for i in range(n):
+            logits, cache = serve_step(params, cache, toks[-1], S + i)
+            wants.append(logits)
+            toks.append(logits.argmax(-1))
+    del cache
+    mesh = make_debug_mesh(*SERVE_MESH)
+    placed = shard_tree(params, param_shardings(params, mesh))
+
+    def mesh_run(steps: int) -> dict:
+        routes.replay, routes.at, routes.n_split, routes.flips = True, 0, n_dp, []
+        out = dict(logits=[], step_ms=[])
+        with routes, use_mesh(mesh), torch.no_grad():
+            reset_launch_counts()
+            mesh.log.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, c = prefill_step(placed, prompt)
+            torch.cuda.synchronize()
+            out.update(prefill_s=time.perf_counter() - t0, prefill_collectives=log_of(mesh),
+                       prefill_launches=launch_counts()["flash_attention"],
+                       prefill_routes=dict(flash_attention.route_launches))
+            out["spec_k"] = [str(e) for e in c["k"].spec]
+            c = M.grow_cache(c, L)
+            out["logits"].append(got)
+            reset_launch_counts()
+            mesh.log.clear()
+            torch.cuda.synchronize()
+            t_win = time.perf_counter()
+            for i in range(steps):
+                t0 = time.perf_counter()
+                got, c = serve_step(placed, c, toks[i], S + i)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["logits"].append(got)
+            out.update(decode_window_ms=(time.perf_counter() - t_win) * 1e3,
+                       decode_collectives=log_of(mesh),
+                       decode_launches=launch_counts()["flash_attention"],
+                       decode_routes=dict(flash_attention.route_launches),
+                       route_flips=sum(routes.flips))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    run = mesh_run(n)
+    peak = torch.cuda.max_memory_allocated()
+    agree = [same_logits(g, w, f"sharded serving, {'prefill' if i == 0 else f'step {i - 1}'}",
+                         near_tie=True)
+             for i, (g, w) in enumerate(zip(run["logits"], wants))]
+    check(run["spec_k"][2] == "model", f"the prefill cache's k is placed {run['spec_k']}")
+    layers = cfg.n_layers
+    check(run["prefill_routes"]["tensor_core"] == layers * n_dp * n_tp,
+          f"prefill flash routes {run['prefill_routes']}")
+    check(run["decode_routes"]["split_kv"] == n * layers * n_dp * n_tp,
+          f"decode flash routes {run['decode_routes']} (one split-KV launch a shard)")
+    again = mesh_run(1)
+    check(all(torch.equal(a, b) for a, b in zip(again["logits"], run["logits"])),
+          "a repeat of the sharded prefill and first step is not bit-equal")
+    del again
+
+    # long context: batch 1, the cache's sequence over all 8 ranks (shard_seq)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    long_cache = M.make_cache(cfg, 1, SERVE_LONG, device=dev)
+    for t in (long_cache["k"], long_cache["v"]):
+        t.normal_(generator=gen)
+    placed_long = shard_tree({k: t.clone() for k, t in long_cache.items()},
+                             cache_shardings(long_cache, mesh, shard_seq=True))
+    long_spec = [str(e) for e in placed_long["k"].spec]
+    check(tuple(placed_long["k"].spec)[2] == ("data", "model"),
+          f"the long cache is placed {long_spec}")
+    tok1, pos = toks[0][:1], SERVE_LONG - 1
+    long_routes = PinnedRoutes()
+    with long_routes, torch.no_grad():
+        want_long, _ = serve_step(params, long_cache, tok1, pos)
+    del long_cache
+    long_routes.replay, long_routes.n_split = True, 1  # batch 1: computed once, as data rank 0
+    with long_routes, use_mesh(mesh), torch.no_grad():
+        reset_launch_counts()
+        mesh.log.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_long, _ = serve_step(placed, placed_long, tok1, pos)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+        long_routes_by = dict(flash_attention.route_launches)
+        long_log = log_of(mesh)
+    check(long_routes_by["split_kv"] == layers * n_dp * n_tp,
+          f"shard_seq decode flash routes {long_routes_by} (one a shard)")
+    long_agree = same_logits(got_long, want_long, "shard_seq decode", near_tie=True)
+    del placed_long, placed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields = dict(model=cfg.name, mesh=list(SERVE_MESH), layers=layers, d_model=cfg.d_model,
+                  heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, heads_per_rank=cfg.n_heads // n_tp,
+                  experts=cfg.n_experts, top_k=cfg.moe_top_k, prompts=B, prompt_len=S,
+                  cache_len=L, cache_spec_k=run["spec_k"], decode_steps=n,
+                  prefill_s=run["prefill_s"], prefill_tokens_per_s=B * S / run["prefill_s"],
+                  decode_window_ms=run["decode_window_ms"],
+                  decode_ms_per_step=run["decode_window_ms"] / n,
+                  decode_ms_per_step_median=statistics.median(run["step_ms"]),
+                  prefill_collectives=run["prefill_collectives"],
+                  decode_collectives_16_steps=run["decode_collectives"],
+                  prefill_flash_launches=run["prefill_launches"],
+                  prefill_flash_routes=run["prefill_routes"],
+                  decode_flash_launches=run["decode_launches"],
+                  decode_flash_routes=run["decode_routes"],
+                  moe_route_flips_replayed=run["route_flips"],
+                  logits_vs_one_device=agree, repeat_bit_equal=True,
+                  rtol=LOGIT_RTOL, atol=LOGIT_ATOL, max_memory_allocated_bytes=peak,
+                  long_cache_len=SERVE_LONG, long_cache_len_uncut=LONG_500K,
+                  long_cache_spec_k=long_spec,
+                  long_decode_ms=long_ms, long_decode_flash_routes=long_routes_by,
+                  long_decode_collectives=long_log, long_vs_one_device=long_agree,
+                  long_moe_route_flips_replayed=sum(long_routes.flips),
+                  seconds=time.perf_counter() - t_phase)
+    emit("scale_cut", what="shard_seq decode cache", cache_len=SERVE_LONG,
+         long_500k_len=LONG_500K, why="the time limit: a 524,288-position cache of 32 "
+         "layers would be 34 GB to fill and compare on one card")
+    emit("sharded_serve_path", **fields)
+    return dict(fields=fields, launches=dict(prefill=run["prefill_launches"],
+                                             decode=run["decode_launches"]))
+
+
+def phase_sharded_serve_kernel_times(sv: dict, dev, peaks, errs: dict) -> list[dict]:
+    """The flash kernel at sharded_serve_path's two calls, held against its
+    plain version, timed beside it and one SDPA call of the same function,
+    bounded: one model rank's prefill call (q (1, 6, 2048, 64) of one data
+    rank in the model's strided layout, kv 2 heads, causal) and one
+    sequence shard's decode call with its lse (q (1, 24, 1, 64): every head,
+    gathered; its 516-position slice of the 2,064 kv positions of 8 heads)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_lse
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_ref
+    from repro_torch.kernels.parity import check_flash
+    cfg = get_arch(SERVE_MODEL)
+    n_dp, n_tp = SERVE_MESH
+    d, b = cfg.hd, PROMPTS // n_dp
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def heads(batch, s, h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
+        return torch.randn((batch, s, h, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    rows = []
+    # prefill: one model rank's heads of one data rank's rows
+    Hq, Hkv, S = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp, SERVE_S
+    q, k, v = heads(b, S, Hq), heads(b, S, Hkv), heads(b, S, Hkv)
+    out = flash_attention(q, k, v)
+    route = flash_attention.last_route[0]
+    check(route == "tensor_core", f"the sharded prefill call took {route}")
+    err = check_flash(out, attention_ref(q, k, v), "flash at the sharded prefill call")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    pairs = kept_pairs(S, S, True, 0)
+    flops = 4.0 * b * Hq * d * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    rows.append(table_row(
+        "flash_attention[tp_prefill]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
+        "src/repro/kernels/flash_attention/kernel.py:24", sv["launches"]["prefill"], err,
+        cuda_ms(lambda: flash_attention(q, k, v)),
+        cuda_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                       enable_gqa=True)),
+        bound(nbytes, flops, peaks, rate="bf16"), shape=[b, Hq, Hkv, S, S, d],
+        call="granite-moe-3b sharded prefill, one model rank (causal, bf16)", flash_route=route,
+        library="sdpa (enable_gqa, is_causal)", kept_pairs=pairs, flops=flops, bytes=nbytes))
+    # decode: one sequence shard's slice, every q head (gathered), with lse
+    Hq, Hkv, n = cfg.n_heads, cfg.n_kv_heads, (SERVE_S + DECODE_STEPS) // n_tp
+    q, k, v = heads(b, 1, Hq), heads(b, n, Hkv), heads(b, n, Hkv)
+    out, lse = flash_attention_lse(q, k, v, causal=False)
+    route = flash_attention.last_route[0]
+    check(route == "split_kv", f"the sharded decode call took {route}")
+    want, want_lse = attention_lse_ref(q, k, v, causal=False)
+    err = check_flash(out, want, "flash at the sharded decode call")
+    lse_err = (lse - want_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"sharded decode call: lse differs by {lse_err:.3g}")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    flops = 4.0 * b * Hq * d * n
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
+    rows.append(table_row(
+        "flash_attention[seq_shard_decode]", "cuda", "src/repro_torch/csrc/flash_split.cu",
+        "src/repro/kernels/flash_attention/kernel.py:24", sv["launches"]["decode"], err,
+        cuda_ms(lambda: flash_attention_lse(q, k, v, causal=False)),
+        cuda_ms(lambda: attention_lse_ref(q, k, v, causal=False), reps=3, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)),
+        bound(nbytes, flops, peaks, rate="bf16"), shape=[b, Hq, Hkv, 1, n, d],
+        call="granite-moe-3b sharded decode, one sequence shard (every head, with lse)",
+        flash_route=route, splits=flash_attention.last_route[1], lse_max_abs_err=lse_err,
+        library="sdpa (enable_gqa; no lse)", flops=flops, bytes=nbytes))
+    return rows
+
+
+def phase_scan_sweep(dev, peaks, errs: dict) -> list[dict]:
+    """``launch.roofline.streaming_vs_twopass(measure=True)`` on the card:
+    the modeled bytes of the streaming and two-pass scans and both measured
+    per table size N (B 128, d 128, k 16, every 64th row dead), the two
+    bit-equal at each N, and the sweep's acceptance (at the largest N the
+    two-pass score block exceeds the L2 and moves >= 2x the bytes). Launch
+    counts are zeroed before and read after. Then the three kernels at the
+    largest N, each against its plain version, timed beside it, one library
+    call and the bound."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.distance.kernel import batched_scores
+    from repro_torch.kernels.distance.ops import _mask_rows
+    from repro_torch.kernels.distance.ref import batched_scores_ref
+    from repro_torch.kernels.parity import check_scores, check_topk, combined_plain_scores
+    from repro_torch.kernels.streaming.ops import streaming_fused_scan
+    from repro_torch.kernels.streaming.ref import streaming_fused_scan_ref
+    from repro_torch.kernels.topk.kernel import topk_scores
+    from repro_torch.kernels.topk.ref import topk_ref
+    from repro_torch.launch.roofline import L2_BYTES, streaming_vs_twopass
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    sweep = streaming_vs_twopass(measure=True, device=dev)
+    counts = launch_counts()
+    for name in ("streaming_fused_scan", "batched_scores", "topk_scores"):
+        check(counts[name] > 0, f"the scan sweep launched no {name}")
+    check(all(r["measured"]["equal"] for r in sweep["sweep"]),
+          "the two-pass scan differs from the streaming scan in the sweep")
+    check(sweep["acceptance"]["ok"], f"scan sweep acceptance: {sweep['acceptance']}")
+    emit("scan_sweep", B=sweep["B"], d=sweep["d"], k=sweep["k"], masked=sweep["masked"],
+         l2_bytes=L2_BYTES, vmem_bytes=sweep["vmem_bytes"], acceptance=sweep["acceptance"],
+         launches=counts, seconds=time.perf_counter() - t0,
+         sweep=[{key: r[key] for key in ("n", "twopass_bytes", "streaming_bytes",
+                                         "score_block_bytes", "hbm_ratio", "exceeds_vmem")}
+                | {"streaming_ms": r["measured"]["streaming_ms"],
+                   "twopass_ms": r["measured"]["twopass_ms"]} for r in sweep["sweep"]])
+    # the largest N's operands, as _measure_scan_pair makes them
+    B, d, k, N = sweep["B"], sweep["d"], sweep["k"], sweep["sweep"][-1]["n"]
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32), device=dev)
+    db = torch.as_tensor(rng.standard_normal((N, d)).astype(np.float32), device=dev)
+    dead = np.zeros(N, dtype=bool)
+    dead[:: max(N // 64, 1)] = True
+    kw = dict(valid_n=N - 1, dead_mask=torch.as_tensor(dead, device=dev))
+    rows = []
+    vals, ids = streaming_fused_scan(q, db, k=k, **kw)
+    rvals, rids = streaming_fused_scan_ref(q, db, k, **kw)
+    full = combined_plain_scores(q, db, "dot", kw)
+    e, swaps = check_topk(vals, ids, rvals, rids, full, d, f"streaming at the sweep's N={N}")
+    errs["streaming_fused_scan"] = max(errs["streaming_fused_scan"], e)
+    nbytes, flops = 4 * (B * d + N * d) + N + 8 * B * k, 2.0 * B * N * d
+    rows.append(table_row(
+        "streaming_fused_scan[scan_sweep]", "cuda", "src/repro_torch/csrc/streaming.cu",
+        "src/repro/kernels/streaming/kernel.py:44", counts["streaming_fused_scan"], e,
+        cuda_ms(lambda: streaming_fused_scan(q, db, k=k, **kw)),
+        cuda_ms(lambda: streaming_fused_scan_ref(q, db, k, **kw)),
+        cuda_ms(lambda: torch.topk(_mask_rows(q @ db.T, N - 1, kw["dead_mask"]), k, dim=1)),
+        bound(nbytes, flops, peaks), shape=[B, N, d, k], near_tie_swaps=swaps,
+        library="matmul + mask + torch.topk"))
+    scores = batched_scores(q, db)
+    de = check_scores(scores, batched_scores_ref(q, db), d, f"distance at the sweep's N={N}")
+    errs["batched_scores"] = max(errs["batched_scores"], de)
+    nbytes = 4 * (B * d + N * d + B * N)
+    rows.append(table_row(
+        "batched_scores[scan_sweep]", "cuda", "src/repro_torch/csrc/distance.cu",
+        "src/repro/kernels/distance/kernel.py:23", counts["batched_scores"], de,
+        cuda_ms(lambda: batched_scores(q, db)), cuda_ms(lambda: batched_scores_ref(q, db)),
+        cuda_ms(lambda: q @ db.T), bound(nbytes, flops, peaks), shape=[B, N, d],
+        library="matmul"))
+    masked = _mask_rows(scores, N - 1, kw["dead_mask"])
+    tv, ti = topk_scores(masked, k)
+    tr, tri = topk_ref(masked, k)
+    check(torch.equal(tv, tr) and torch.equal(ti, tri), f"top-k differs at the sweep's N={N}")
+    nbytes = 4 * B * N + 8 * B * k
+    rows.append(table_row(
+        "topk_scores[scan_sweep]", "cuda", "src/repro_torch/csrc/topk.cu",
+        "src/repro/kernels/topk/kernel.py:42", counts["topk_scores"], 0.0,
+        cuda_ms(lambda: topk_scores(masked, k)), cuda_ms(lambda: topk_ref(masked, k)),
+        cuda_ms(lambda: torch.topk(masked, k, dim=1)), bound(nbytes, 0.0, peaks),
+        shape=[B, N, k], library="torch.topk"))
+    return rows
+
+
+def phase_dryrun() -> None:
+    """``launch.dryrun.run_cell`` on the meta 16 x 16 mesh for
+    granite-moe-1b-a400m's decode_32k and prefill_32k cells (rank 0's
+    counted FLOPs, bytes, memory, collectives and roofline, with the
+    seconds to place and to count), then the counting pass over train_path's
+    step on one device (granite-moe-1b-a400m, TRAIN_B x TRAIN_S, remat) on
+    meta, its FLOPs beside train_path's analytic ``flops_per_step``."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.dryrun import abstract_params, count_step, run_cell
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    for shape in ("decode_32k", "prefill_32k"):
+        rec = run_cell(TRAIN_MODEL, shape, False)
+        check(rec["status"] == "ok", f"dry-run {TRAIN_MODEL} {shape}: {rec}")
+        emit("dryrun_cell", arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+             status=rec["status"], lower_s=rec["lower_s"], count_s=rec["count_s"],
+             cost=rec["cost"], memory=rec["memory"],
+             collective_bytes=rec["collectives"]["total_bytes"],
+             roofline={key: rec["roofline"][key] for key in
+                       ("t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                        "useful_flops_ratio", "roofline_fraction")})
+    cfg = get_arch(TRAIN_MODEL)
+    params = abstract_params(cfg)
+    batch = {"tokens": torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32, device="meta")}
+    t1 = time.perf_counter()
+    _, count = count_step(make_train_step(cfg), (params, adamw_init(params), batch), grad=True)
+    count_s = time.perf_counter() - t1
+    active = M.active_param_count(cfg, params)
+    attn = 3 * 4.0 * TRAIN_B * cfg.n_heads * cfg.hd * kept_pairs(TRAIN_S, TRAIN_S, True, 0) \
+        * cfg.n_layers
+    analytic = 6.0 * active * TRAIN_B * TRAIN_S + attn
+    check(math.isfinite(count["flops"]) and count["flops"] > 0, "counted train flops")
+    emit("dryrun_train_count", model=cfg.name, batch=TRAIN_B, seq_len=TRAIN_S,
+         remat=cfg.remat, counted_flops=count["flops"], counted_flash_flops=count["flash_flops"],
+         counted_bytes=count["bytes"], analytic_flops_per_step=analytic,
+         counted_over_analytic=count["flops"] / analytic, count_s=count_s,
+         seconds=time.perf_counter() - t0)
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -3856,7 +4247,8 @@ def main() -> int:
                          "limit forces it; the cut is printed)")
     ap.add_argument("--online-queries", type=int, default=ONLINE_QUERIES_CUT,
                     help="arrivals of the online path's traces (cut from 96 to make "
-                         "room for the sharded training path; the cut is printed)")
+                         "room for the sharded training and serving phases; the cut "
+                         "is printed)")
     ap.add_argument("--graph-rows", type=int, default=GRAPH_ROWS,
                     help="rows of the graph path's quickstart database (cut from "
                          "100,000 to make room for the mesh path; the cut is printed)")
@@ -3945,6 +4337,16 @@ def main() -> int:
              budget_s=TRAIN_BUDGET_S)
         sharded = phase_sharded_train_path(dev, peaks)
         rows += phase_sharded_kernel_times(sharded, dev, peaks, errs)
+        del sharded
+        gc.collect()
+        t_new = time.perf_counter()
+        serve = phase_sharded_serve_path(dev, peaks)
+        rows += phase_sharded_serve_kernel_times(serve, dev, peaks, errs)
+        del serve
+        rows += phase_scan_sweep(dev, peaks, errs)
+        phase_dryrun()
+        emit("serve_sweep_dryrun_done", seconds=time.perf_counter() - t_new,
+             budget_s=SERVE_BUDGET_S)
     except (SmokeFailure, ParityError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

@@ -27,7 +27,54 @@ records nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+
+class _NoTrace:
+    """The hooks a counting pass (``launch.cost_count``) fills in: ``quiet``
+    wraps a collective's own data movement (not compute), ``deliver`` tells
+    it which ranks hold each result, ``place`` which rank holds each block
+    of a placed tensor made inside a step, and ``rank`` returns a tensor
+    (``t`` itself, or an alias the pass marks) that it attributes to data
+    rank ``d`` or model rank ``m``: one the controller made for that rank
+    alone. Off by default; ``tracing`` sets a hook for the calling thread
+    only, as a ``TorchDispatchMode`` is, so other threads' work is not
+    counted."""
+
+    def quiet(self):
+        return contextlib.nullcontext()
+
+    def deliver(self, outs, ins, mesh, axis, scattered: bool = False) -> None:
+        pass
+
+    def place(self, blocks) -> None:
+        pass
+
+    def rank(self, t, d: int | None = None, m: int | None = None):
+        return t
+
+
+_NO_TRACE = _NoTrace()
+_LOCAL = threading.local()
+
+
+def trace():
+    """The calling thread's hook (``_NoTrace`` unless ``tracing`` set one)."""
+    return getattr(_LOCAL, "hook", _NO_TRACE)
+
+
+@contextlib.contextmanager
+def tracing(hook):
+    """``hook`` as the calling thread's ``trace()`` inside the block."""
+    prev = trace()
+    _LOCAL.hook = hook
+    try:
+        yield hook
+    finally:
+        _LOCAL.hook = prev
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -46,7 +93,9 @@ def all_gather(per_rank: list[torch.Tensor], mesh, axis,
                home: torch.device) -> torch.Tensor:
     """(S, *shape) on ``home``: rank r's tensor at index r."""
     _check(per_rank, mesh, axis)
-    out = torch.stack([t.to(home) for t in per_rank])
+    with trace().quiet():
+        out = torch.stack([t.to(home) for t in per_rank])
+    trace().deliver([out], per_rank, mesh, axis)
     mesh.record("all-gather", _nbytes(out))
     return out
 
@@ -58,9 +107,11 @@ def all_gather_dim(per_rank: list[torch.Tensor], mesh, axis, dim: int,
     all_gather(..., tiled=True)``), cut to ``size`` along it when the last
     block carries padding."""
     _check(per_rank, mesh, axis)
-    out = torch.cat([t.to(home) for t in per_rank], dim=dim)
-    if size is not None and out.shape[dim] != size:
-        out = out.narrow(dim, 0, size)
+    with trace().quiet():
+        out = torch.cat([t.to(home) for t in per_rank], dim=dim)
+        if size is not None and out.shape[dim] != size:
+            out = out.narrow(dim, 0, size)
+    trace().deliver([out], per_rank, mesh, axis)
     if record:
         mesh.record("all-gather", _nbytes(out))
     return out
@@ -70,9 +121,11 @@ def psum(per_rank: list[torch.Tensor], mesh, axis,
          home: torch.device, *, record: bool = True) -> torch.Tensor:
     """The elementwise sum of the ranks' tensors on ``home``, in rank order."""
     _check(per_rank, mesh, axis)
-    out = per_rank[0].to(home)
-    for t in per_rank[1:]:
-        out = out + t.to(home)
+    with trace().quiet():
+        out = per_rank[0].to(home)
+        for t in per_rank[1:]:
+            out = out + t.to(home)
+    trace().deliver([out], per_rank, mesh, axis)
     if record:
         mesh.record("all-reduce", _nbytes(out))
     return out
@@ -82,9 +135,11 @@ def pmax(per_rank: list[torch.Tensor], mesh, axis,
          home: torch.device, *, record: bool = True) -> torch.Tensor:
     """The elementwise max of the ranks' tensors on ``home`` (an all-reduce)."""
     _check(per_rank, mesh, axis)
-    out = per_rank[0].to(home)
-    for t in per_rank[1:]:
-        out = torch.maximum(out, t.to(home))
+    with trace().quiet():
+        out = per_rank[0].to(home)
+        for t in per_rank[1:]:
+            out = torch.maximum(out, t.to(home))
+    trace().deliver([out], per_rank, mesh, axis)
     if record:
         mesh.record("all-reduce", _nbytes(out))
     return out
@@ -108,10 +163,12 @@ def reduce_scatter(per_rank: list[torch.Tensor], mesh, axis, dim: int,
     ``devices[r]`` (``jax.lax.psum_scatter(..., tiled=True)``)."""
     _check(per_rank, mesh, axis)
     home = devices[0]
-    total = per_rank[0].to(home)
-    for t in per_rank[1:]:
-        total = total + t.to(home)
-    out = [b.to(d) for b, d in zip(_blocks(total, len(per_rank), dim), devices)]
+    with trace().quiet():
+        total = per_rank[0].to(home)
+        for t in per_rank[1:]:
+            total = total + t.to(home)
+        out = [b.to(d) for b, d in zip(_blocks(total, len(per_rank), dim), devices)]
+    trace().deliver(out, per_rank, mesh, axis, scattered=True)
     if record:
         mesh.record("reduce-scatter", _nbytes(out[0]))
     return out
@@ -125,9 +182,11 @@ def all_to_all(per_rank: list[torch.Tensor], mesh, axis, split_dim: int,
     ``devices[s]`` (``jax.lax.all_to_all``, tiled)."""
     _check(per_rank, mesh, axis)
     n = len(per_rank)
-    cut = [_blocks(t, n, split_dim) for t in per_rank]
-    out = [torch.cat([cut[r][s].to(devices[s]) for r in range(n)], dim=concat_dim)
-           for s in range(n)]
+    with trace().quiet():
+        cut = [_blocks(t, n, split_dim) for t in per_rank]
+        out = [torch.cat([cut[r][s].to(devices[s]) for r in range(n)], dim=concat_dim)
+               for s in range(n)]
+    trace().deliver(out, per_rank, mesh, axis, scattered=True)
     if record:
         mesh.record("all-to-all", _nbytes(out[0]))
     return out

@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
+
 _STATE = threading.local()
 
 
@@ -385,6 +387,27 @@ class Blocks:
                 out.append((coord, t))
         return out
 
+    def astype(self, dtype) -> "Blocks":
+        """The blocks cast to ``dtype`` (replicas still shared); ``self``
+        when they are in it already."""
+        if self.dtype == dtype:
+            return self
+        cast = {id(t): t.to(dtype) for _, t in self.distinct()}
+        grid = np.empty(self.grid.shape, dtype=object)
+        for coord in np.ndindex(*grid.shape):
+            grid[coord] = cast[id(self.grid[coord])]
+        return Blocks(self.sharding, self.shape, grid)
+
+    def box(self, coord: tuple) -> list[tuple[int, int]]:
+        """Per dim, the [start, stop) of the full tensor that the block of
+        rank ``coord`` holds (its zero padding cut off)."""
+        nd, sh = len(self.shape), self.sharding
+        bshape = sh.block_shape(self.shape)
+        out = [(0, s) for s in self.shape]
+        for (k, _), i in zip(sh.split(nd), sh.block_index(coord, nd)):
+            out[k] = (min(i * bshape[k], self.shape[k]), min((i + 1) * bshape[k], self.shape[k]))
+        return out
+
     def unbind(self) -> list["Blocks"]:
         """The blocks of each index of an unsplit leading axis (a layer
         stack): views, replicas still shared."""
@@ -401,6 +424,86 @@ class Blocks:
                 grid[coord] = per[id(self.grid[coord])][i]
             out.append(Blocks(sh, self.shape[1:], grid))
         return out
+
+
+def placed_zeros(sharding: NamedSharding, shape, dtype) -> Blocks:
+    """A zero tensor of ``shape`` placed by ``sharding``, each rank's block
+    made on its device (one per distinct block and device), no full tensor
+    made first."""
+    shape = tuple(int(s) for s in shape)
+    bshape = sharding.block_shape(shape)
+    grid = np.empty(sharding.mesh.devices.shape, dtype=object)
+    made: dict = {}
+    with C.trace().quiet():  # a result's memory, not a step's intermediate
+        for coord in np.ndindex(*grid.shape):
+            dev = sharding.mesh.devices[coord]
+            key = (sharding.block_index(coord, len(shape)), str(dev))
+            if key not in made:
+                made[key] = torch.zeros(bshape, dtype=dtype, device=dev)
+            grid[coord] = made[key]
+    out = Blocks(sharding, shape, grid)
+    C.trace().place(out)
+    return out
+
+
+def placed_cache(make_specs, mesh) -> dict:
+    """A zero decode cache placed by ``cache_shardings`` (``placed_zeros``
+    per leaf) of the specs ``make_specs()`` returns: meta tensors, made
+    outside a counting pass (shapes, not memory of the step)."""
+    with C.trace().quiet():
+        specs = make_specs()
+    return tree_map(lambda t, sh: placed_zeros(sh, t.shape, t.dtype), specs,
+                    cache_shardings(specs, mesh))
+
+
+def _overlap(box: list, origin: tuple, size: tuple):
+    """(slices into the block, slices into the source) where the block's
+    ``box`` meets the region [origin, origin + size), or None."""
+    blk, src = [], []
+    for (lo, hi), o, n in zip(box, origin, size):
+        a, b = max(lo, o), min(hi, o + n)
+        if a >= b:
+            return None
+        blk.append(slice(a - lo, b - lo))
+        src.append(slice(a - o, b - o))
+    return tuple(blk), tuple(src)
+
+
+def write_box(blocks: Blocks, src: torch.Tensor, origin: tuple) -> None:
+    """``full[origin:origin + src.shape] = src`` on a placed tensor, in
+    place: each distinct block takes the part of the region it holds (each
+    rank keeps its slice of a value every rank has: no collective)."""
+    for coord, t in blocks.distinct():
+        hit = _overlap(blocks.box(coord), origin, tuple(src.shape))
+        if hit is not None:
+            t[hit[0]] = src[hit[1]].to(device=t.device, dtype=t.dtype)
+
+
+def read_box(blocks: Blocks, origin: tuple, size: tuple, home, *,
+             record: bool = True) -> torch.Tensor:
+    """``full[origin:origin + size]`` of a placed tensor on ``home``. When
+    one block on ``home`` holds the whole region it is a view of that block
+    (a local slice); else the region is assembled from the blocks that hold
+    it, each block index once: an all-gather of it (recorded unless
+    ``record`` is off) when more than one block contributes."""
+    size, nd = tuple(size), len(blocks.shape)
+    hits, seen = [], set()
+    for coord, t in blocks.distinct():
+        idx = blocks.sharding.block_index(coord, nd)
+        hit = _overlap(blocks.box(coord), origin, size)
+        if hit is not None and idx not in seen:
+            seen.add(idx)
+            hits.append((t, *hit))
+    home = torch.device(home)
+    if len(hits) == 1 and tuple(hits[0][0][hits[0][1]].shape) == size \
+            and hits[0][0].device == home:
+        return hits[0][0][hits[0][1]]
+    out = torch.empty(size, dtype=blocks.dtype, device=home)
+    for t, blk, src in hits:
+        out[src] = t[blk].to(home)
+    if record and len(hits) > 1:
+        blocks.sharding.mesh.record("all-gather", out.numel() * out.element_size())
+    return out
 
 
 def param_shardings(params, mesh, mode: str = "tp"):

@@ -45,9 +45,13 @@ _STATE = threading.local()
 class ShardCtx:
     """The ranks of one sharded computation: ``n_dp`` data ranks (the
     non-``model`` axes flattened) x ``mesh.shape["model"]`` model ranks;
-    ``n_tp`` of those compute a tensor-parallel product (1 in fsdp mode)."""
+    ``n_tp`` of those compute a tensor-parallel product (1 in fsdp mode).
+    With ``split_data`` off the batch is not split over the data ranks (a
+    batch they do not divide, as serving's batch of 1): every data rank
+    computes the same, so the controller computes it once, as data rank 0
+    (``n_dp`` is 1; ``n_dp_mesh`` keeps the mesh's count)."""
 
-    def __init__(self, mesh, mode: str = "tp"):
+    def __init__(self, mesh, mode: str = "tp", split_data: bool = True):
         names = tuple(mesh.axis_names)
         if "model" in names and names[-1] != "model":
             raise ValueError(f"the model axis must be the mesh's last: {names}")
@@ -57,19 +61,42 @@ class ShardCtx:
         self.n_model = int(mesh.shape.get("model", 1))
         dp = tuple(a for a in names if a != "model")
         self.dp_axis = dp[0] if len(dp) == 1 else dp
-        self.n_dp = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
-        self.grid = mesh.devices.reshape(self.n_dp, self.n_model)
+        self.n_dp_mesh = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
+        self.n_dp = self.n_dp_mesh if split_data else 1
+        self.grid = mesh.devices.reshape(self.n_dp_mesh, self.n_model)
         self.n_tp = self.n_model if mode == "tp" else 1
         self.sp = sequence_parallel() and self.n_tp > 1
+        self.mirror = getattr(_STATE, "mirror", False)  # see ``each``
+        if self.mirror and any(dev.type != "meta" for dev in mesh.devices.flat):
+            raise ValueError("mirrored() computes data rank 0's part only: a mesh of "
+                             "meta devices, never one of values")
 
     @staticmethod
-    def for_params(mesh, params) -> "ShardCtx":
+    def for_params(mesh, params, split_data: bool = True) -> "ShardCtx":
         """The context of a parameter tree placed by ``param_shardings``
         (its mode read off the embedding's sharding)."""
-        return ShardCtx(mesh, params["embed"].sharding.mode)
+        return ShardCtx(mesh, params["embed"].sharding.mode, split_data)
+
+    def each(self, fn) -> list:
+        """``[fn(d) for d in range(n_dp)]`` over the data ranks. With
+        ``mirror`` on (a dry-run on ``meta`` tensors, where each data rank's
+        part has data rank 0's shapes) it runs ``fn(0)`` only and gives the
+        other data ranks aliases of its result, marked as theirs for the
+        counting pass: the same collectives, shapes and rank-0 count, at
+        1 / n_dp of the controller's work."""
+        if not self.mirror or self.n_dp == 1:
+            return [fn(d) for d in range(self.n_dp)]
+        first = fn(0)
+        return [first] + [_alias(first, d) for d in range(1, self.n_dp)]
 
     def dev(self, d: int, m: int = 0) -> torch.device:
         return self.grid[d, m]
+
+    def to_rank(self, t: torch.Tensor, d: int, m: int | None = None) -> torch.Tensor:
+        """``t`` on rank (d, m)'s device (data rank d's own with ``m`` None),
+        as a copy the controller made for that rank alone: what a counting
+        pass attributes to it."""
+        return C.trace().rank(t.to(self.dev(d, m or 0)), d=d, m=m)
 
     def devs(self, d: int) -> list:
         return [self.grid[d, m] for m in range(self.n_tp)]
@@ -77,7 +104,7 @@ class ShardCtx:
     # ---- parameters ----------------------------------------------------
 
     def _grid2(self, leaf: Blocks) -> np.ndarray:
-        return leaf.grid.reshape(self.n_dp, self.n_model)
+        return leaf.grid.reshape(self.n_dp_mesh, self.n_model)
 
     def local(self, leaf: Blocks, d: int) -> list:
         """What each compute rank of data rank ``d`` multiplies with: in tp
@@ -95,10 +122,11 @@ class ShardCtx:
         sh = leaf.sharding
         if not sh.split(leaf.ndim):
             return self._grid2(leaf)[d, 0]
-        rows = np.arange(self.n_dp * self.n_model).reshape(self.n_dp, self.n_model)
+        rows = np.arange(self.n_dp_mesh * self.n_model).reshape(self.n_dp_mesh, self.n_model)
         order = [np.unravel_index(i, leaf.grid.shape) for i in
-                 list(rows[d]) + [i for r in range(self.n_dp) if r != d for i in rows[r]]]
+                 list(rows[d]) + [i for r in range(self.n_dp_mesh) if r != d for i in rows[r]]]
         out = sh.gather(leaf, self.dev(d), first=order)
+        out = C.trace().rank(out, d=d)
         if d == 0:
             self.mesh.record("all-gather", out.numel() * out.element_size())
         return out
@@ -114,10 +142,16 @@ class ShardCtx:
     def gather_model(self, blocks: list, d: int, dim: int, size: int) -> torch.Tensor:
         """The model ranks' blocks of a column- or row-split weight joined
         along ``dim`` (cut to ``size``) on data rank d's device."""
-        return C.all_gather_dim(list(blocks), self.mesh, "model", dim, self.dev(d), size,
-                                record=d == 0)
+        out = C.all_gather_dim(list(blocks), self.mesh, "model", dim, self.dev(d), size,
+                               record=d == 0)
+        return C.trace().rank(out, d=d)
 
     # ---- activations ---------------------------------------------------
+
+    def rows(self, B: int, d: int) -> tuple[int, int]:
+        """[start, stop) of data rank d's rows of a batch of ``B``."""
+        b = B // self.n_dp
+        return d * b, (d + 1) * b
 
     def split_batch(self, x: torch.Tensor) -> list:
         """Rows of ``x`` per data rank, each on its rank's device."""
@@ -125,7 +159,10 @@ class ShardCtx:
         if B % self.n_dp:
             raise ValueError(f"a batch of {B} rows does not split over {self.n_dp} data ranks")
         b = B // self.n_dp
-        return [x[d * b:(d + 1) * b].to(self.dev(d)) for d in range(self.n_dp)]
+        parts = [x[d * b:(d + 1) * b].to(self.dev(d)) for d in range(self.n_dp)]
+        if self.n_dp > 1:
+            C.trace().deliver(parts, [x], self.mesh, self.dp_axis, scattered=True)
+        return parts
 
     def seq_full(self, xd, d: int) -> torch.Tensor:
         """Data rank d's whole (B, S, D) activation: sequence blocks are
@@ -188,6 +225,24 @@ class ShardCtx:
                                 record=d == 0)
 
 
+def _alias(x, d: int):
+    """``x`` (a tensor, or a tuple / list / dict of them) as data rank d's:
+    data rank 0's result standing in for it, which only a meta tensor can
+    (its values would be rank 0's)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            raise ValueError(f"a mirrored result on {x.device}: mirrored() is for meta "
+                             f"tensors only")
+        return C.trace().rank(x, d=d)
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_alias(v, d) for v in x)
+    if isinstance(x, tuple):
+        return type(x)(*(_alias(v, d) for v in x))
+    if isinstance(x, dict):
+        return {k: _alias(v, d) for k, v in x.items()}
+    return x
+
+
 @contextlib.contextmanager
 def active(ctx: ShardCtx):
     prev = getattr(_STATE, "ctx", None)
@@ -200,6 +255,19 @@ def active(ctx: ShardCtx):
 
 def current() -> ShardCtx | None:
     return getattr(_STATE, "ctx", None)
+
+
+@contextlib.contextmanager
+def mirrored():
+    """Every ``ShardCtx`` made inside computes data rank 0's part only and
+    mirrors it to the other data ranks (``ShardCtx.each``): for a counting
+    pass on ``meta`` tensors, never for values."""
+    prev = getattr(_STATE, "mirror", False)
+    _STATE.mirror = True
+    try:
+        yield
+    finally:
+        _STATE.mirror = prev
 
 
 def lay_out(mesh, x: Act, layout: str) -> Act:
@@ -241,7 +309,8 @@ class Vocab:
                 raise ValueError(f"embed laid out {emb.spec}; tp mode expects (None, 'model')")
             rows = C.all_to_all(ctx.local(emb, d), ctx.mesh, "model", 0, 1, ctx.devs(d),
                                 record=d == 0)
-            self.rows = [r[:, :D] for r in rows]  # the d_model padding, if any
+            # the d_model padding cut, if any
+            self.rows = [C.trace().rank(r[:, :D], d=d) for r in rows]
         self.Vb = self.rows[0].shape[0]
         if "lm_head" in params:
             self.cols = ctx.local(params["lm_head"], d)
@@ -262,6 +331,17 @@ class Vocab:
             parts.append(torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
                                                                     device=e.device)))
         return self.ctx.row_end(parts, self.d, split)
+
+    def logits(self, h: torch.Tensor, cap: float) -> torch.Tensor:
+        """Data rank d's logits (B, s, V) float32 of hidden states ``h``
+        (B, s, D) on its device: each compute rank's vocab block,
+        soft-capped, all-gathered over ``model`` (recorded) and cut to V."""
+        from repro_torch.models.common import softcap
+        blocks = [softcap(h.float().to(w.device) @ w.float(), cap) for w in self.cols]
+        if len(blocks) == 1:
+            return blocks[0]
+        return C.all_gather_dim(blocks, self.ctx.mesh, "model", -1, self.ctx.dev(self.d),
+                                self.V, record=self.d == 0)
 
     def logz_gold(self, h: torch.Tensor, targets: torch.Tensor, cap: float):
         """(logsumexp, gold logit) of data rank d's hidden states ``h``

@@ -3,7 +3,9 @@
 
 On a CUDA tensor it launches ``csrc/flash_attention.cu`` (the port of
 ``repro/kernels/flash_attention/kernel.py:_flash_kernel``); on a CPU tensor
-it computes the plain version in ``ref.py``. Under autograd the call goes
+it computes the plain version in ``ref.py``; on a ``meta`` tensor (a
+dry-run) it computes nothing and reports its kept pairs' flops to the
+counting pass (``meta_counters``). Under autograd the call goes
 through ``FlashAttentionFn``: the forward also writes each row's lse, and
 the backward launches ``csrc/flash_bwd.cu`` (on the CPU:
 ``attention_bwd_ref``). The forward's C entry point picks one of
@@ -16,8 +18,10 @@ chosen by dtype alone (``mint_flash_bwd_route``): tensor cores
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.common import (DTYPE_CODES, H100_SMS, cdiv, check_launch,
@@ -58,6 +62,48 @@ def split_plan(B: int, Hkv: int, Sq: int, Skv: int, causal: bool, window: int,
                         cdiv(n_kv, SPLIT_MIN_KEYS)))
     chunk = cdiv(n_kv, splits)
     return SplitPlan(kv_begin, kv_end, chunk, cdiv(n_kv, chunk))
+
+
+def kept_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs a call's mask keeps, per (batch, q head): its work (q
+    aligned to the end of the kv sequence; ``window`` > 0 keeps the kv
+    positions > q position - window)."""
+    if Sq == 0 or Skv == 0:
+        return 0
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+# A counting pass over a step on ``meta`` tensors (``launch.cost_count``)
+# appends a callable to its thread's ``meta_counters()``; a call on meta
+# tensors computes nothing and reports (name, inputs, outputs, flops) to
+# each: 4 x d flops a kept pair forward (QK^T and PV), 10 x d backward (S
+# again, dV, dP, dQ, dK).
+_META = threading.local()
+
+
+def meta_counters() -> list:
+    """The calling thread's counters of calls on meta tensors."""
+    if not hasattr(_META, "counters"):
+        _META.counters = []
+    return _META.counters
+
+
+def _meta_call(name: str, ins: tuple, outs: tuple, flops: int) -> None:
+    for count in meta_counters():
+        count(name, ins, outs, flops)
+
+
+def _meta_forward(q, k, v, causal: bool, window: int, with_lse: bool):
+    B, Hq, Sq, d = q.shape
+    out = torch.empty((B, Hq, Sq, d), dtype=q.dtype, device="meta")
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device="meta")
+           if with_lse else None)
+    flops = 4 * d * B * Hq * kept_pairs(Sq, k.shape[2], causal, window)
+    _meta_call("flash_attention", (q, k, v), (out,) if lse is None else (out, lse), flops)
+    return out, lse
 
 
 def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -171,6 +217,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale_f)
+    if q.device.type == "meta":
+        return _meta_forward(q, k, v, causal, window, with_lse=False)[0]
     return _forward(q, k, v, causal, window, softcap, scale_f, with_lse=False)[0]
 
 
@@ -185,6 +233,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_lse_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                                  scale=scale_f)
+    if q.device.type == "meta":
+        return _meta_forward(q, k, v, causal, window, with_lse=True)
     return _forward(q, k, v, causal, window, softcap, scale_f, with_lse=True)
 
 
@@ -213,6 +263,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
                                  softcap=softcap, scale=scale_f)
+    if q.device.type == "meta":
+        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta") for t in (q, k, v))
+        _meta_call("flash_attention_bwd", (q, k, v, out, lse, dout), grads,
+                   10 * d * B * Hq * kept_pairs(Sq, Skv, causal, window))
+        return grads
     # autograd may hand dout over in any layout: the kernel reads it, like
     # out, as contiguous rows of 16-byte vectors
     dout = dout.to(q.dtype).contiguous()

@@ -134,7 +134,7 @@ def analytic_cell(arch: str, shape_name: str, mesh: str, n_params: int,
     }
 
 
-def load_and_annotate(path: str = "experiments/dryrun.json") -> list[dict]:
+def load_and_annotate(path: str = "experiments/torch_dryrun.json") -> list[dict]:
     with open(path) as f:
         recs = json.load(f)
     for r in recs:
@@ -155,7 +155,7 @@ def fmt_seconds(x: float) -> str:
 
 
 def dryrun_table(recs: list[dict]) -> str:
-    lines = ["| arch | shape | mesh | status | compile | bytes/device | "
+    lines = ["| arch | shape | mesh | status | count | bytes/device | "
              "colls (AG/AR/RS/A2A/CP) |",
              "|---|---|---|---|---|---|---|"]
     for r in sorted(recs, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
@@ -166,7 +166,8 @@ def dryrun_table(recs: list[dict]) -> str:
                            "all-to-all", "collective-permute"))
             mem = r["memory"].get("total_device_bytes", 0) / 2 ** 30
             lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
-                         f"{r.get('compile_s', 0):.0f}s | {mem:.2f} GiB | {cc} |")
+                         f"{r.get('count_s', r.get('compile_s', 0)):.0f}s | {mem:.2f} GiB | "
+                         f"{cc} |")
         else:
             why = r.get("reason", r.get("error", ""))[:60]
             lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
@@ -194,7 +195,7 @@ def main(argv=None):
     import argparse
     rates = HW.get("name", "the HW rates")
     ap = argparse.ArgumentParser(description=f"Dry-run and analytic roofline tables ({rates}).")
-    ap.add_argument("--in", dest="inp", default="experiments/dryrun.json")
+    ap.add_argument("--in", dest="inp", default="experiments/torch_dryrun.json")
     ap.add_argument("--mesh", default="16x16")
     args = ap.parse_args(argv)
     recs = load_and_annotate(args.inp)

@@ -156,9 +156,11 @@ def flash_route(q, k, v, *, causal: bool = True, window=1 << 30,
 
 
 def attention(q, k, v, **kw):
-    """Dispatch: the flash kernel on the card; on the CPU dense up to
-    2048 x 2048 (with at most 8192 kv positions), chunked above."""
-    if q.device.type == "cuda":
+    """Dispatch: the flash kernel on the card (and on ``meta`` tensors, a
+    dry-run's: the kernel's shapes and its own count of work); on the CPU
+    dense up to 2048 x 2048 (with at most 8192 kv positions), chunked
+    above."""
+    if q.device.type in ("cuda", "meta"):
         return flash_route(q, k, v, **kw)
     if q.shape[1] * k.shape[1] <= 2048 * 2048 and k.shape[1] <= 8192:
         return dense_attention(q, k, v, **kw)

@@ -35,8 +35,11 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.distributed.sharding import (Act, Blocks, current_mesh, param_shardings,
-                                              shard_act, shard_tree, tree_map, use_mesh)
+from repro_torch.distributed import kv_cache as KV
+from repro_torch.distributed.sharding import (Act, Blocks, cache_shardings, current_mesh,
+                                              gather_tree, param_shardings, placed_cache, read_box,
+                                              shard_act, shard_tree, tree_map, use_mesh,
+                                              write_box)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
@@ -514,14 +517,14 @@ def _whisper_cross_kv(cfg: ArchConfig, params, enc: torch.Tensor, ck: torch.Tens
 # --------------------------------------------------------------------------
 
 
-def cache_specs(cfg: ArchConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                 kv_dtype=None) -> dict:
     """The decode cache of (cfg, batch, max_len) as shapes and dtypes only:
     tensors on the ``meta`` device (the reference's ShapeDtypeStructs)."""
     return make_cache(cfg, batch, max_len, dtype, abstract=True, kv_dtype=kv_dtype)
 
 
-def make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
+def make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                abstract: bool = False, kv_dtype=None, device=None) -> dict:
     """Zeroed decode cache of ``cfg`` on ``device`` (None: the card;
     ``abstract``: the ``meta`` device, shapes only), the reference's tree:
@@ -529,8 +532,10 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
     (``kv_dtype="int8"`` adds per-(token, head) f32 scales); zamba2's
     per-layer ``SSMCache`` and per-group KV (G, B, max_len, Hkv, hd);
     xlstm's ``MLSTMCache`` / ``SLSTMCache``; whisper's self KV and its
-    cross ``ck`` / ``cv`` of ``cross_len`` encoder positions."""
+    cross ``ck`` / ``cv`` of ``cross_len`` encoder positions. ``dtype``
+    (of the k / v entries) defaults to the activations' (``ACT_DTYPE``)."""
     fam = _family(cfg)
+    dtype = ACT_DTYPE if dtype is None else dtype
     device = torch.device("meta") if abstract else resolve_device(device)
     hd, Hkv, B, L = cfg.hd, cfg.n_kv_heads, batch, cfg.n_layers
     f32 = torch.float32
@@ -575,7 +580,18 @@ def grow_cache(cache: dict, max_len: int) -> dict:
     prefill's cache, sized to the prompt, becomes one that decode can extend.
     Only the self-attention entries grow (their axis 2); recurrent states
     and whisper's cross ``ck`` / ``cv`` are copied at their size. The
-    reference's tests grow theirs the same way (tests/test_arch_smoke.py)."""
+    reference's tests grow theirs the same way (tests/test_arch_smoke.py).
+    A placed cache (a tree of ``Blocks``) is gathered, grown and placed
+    again by ``cache_shardings``, in the long-context layout (``shard_seq``)
+    when its k's sequence was spread over the data axes too: a reshard
+    between steps, outside any step's collectives."""
+    placed = [b for _, b in _leaves(cache) if isinstance(b, Blocks)]
+    if placed:
+        mesh = placed[0].sharding.mesh
+        seq = KV.seq_axes(cache["k"]) if "k" in cache else ()
+        grown = grow_cache(gather_tree(cache), max_len)
+        return shard_tree(grown, cache_shardings(grown, mesh,
+                                                 shard_seq=any(a != "model" for a in seq)))
     out = {}
     for key, t in cache.items():
         if key not in GROWN:
@@ -712,8 +728,13 @@ def prefill(cfg: ArchConfig, params, batch: dict):
     returns (last_logits (B, 1, V) f32, cache). ``batch["tokens"]`` is a
     (B, S) array or tensor; whisper also takes ``batch["frames"]`` (B, Se, D)
     and qwen2-vl ``batch["vision_embeds"]`` (B, n_vision, D), arrays or
-    tensors of any float dtype."""
+    tensors of any float dtype. Under ``use_mesh`` the params are ``Blocks``
+    (or full tensors, placed by the tp rules) and the cache comes back as a
+    tree of ``Blocks`` placed by ``cache_shardings`` (``_prefill_tp``)."""
     fam = _family(cfg)
+    mesh = current_mesh()
+    if mesh is not None:
+        return _prefill_tp(cfg, params, batch, mesh)
     tokens = _tokens(params, batch["tokens"])
     B, S = tokens.shape
     dev = tokens.device
@@ -746,8 +767,12 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     """One decode step: tokens (B, 1), ``cache`` holds ``pos`` valid entries
     and takes the new one at ``pos`` (in place). Returns (logits (B, 1, V)
     f32, cache). For qwen2-vl, slot ``pos`` holds text token
-    ``pos - n_vision_tokens``."""
+    ``pos - n_vision_tokens``. Under ``use_mesh`` the params and the cache
+    are placed trees (``_decode_step_tp``)."""
     fam = _family(cfg)
+    mesh = current_mesh()
+    if mesh is not None:
+        return _decode_step_tp(cfg, params, cache, tokens, pos, mesh)
     tokens = _tokens(params, tokens)
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens)
@@ -823,58 +848,128 @@ def _kv_gathered(cfg: ArchConfig, ctx, p, d: int, keys=("wk", "wv", "bk", "bv"))
 
 
 def _attn_tp(cfg: ArchConfig, ctx, p, xd, positions, d: int, *, window, causal=True,
-             kv_override=None):
+             kv_override=None, kv=None):
     """``_attn`` of data rank ``d`` with its compute ranks' blocks ``p``:
     ``wq`` / ``wk`` / ``wv`` (+ biases) column-parallel by whole heads, each
     rank attending over its own q heads (the flash kernel on the card), and
     ``wo`` row-parallel, ending in ``row_end``. ``kv_override``: each
-    rank's cross (k, v)."""
+    rank's cross (k, v). ``kv``: a prefill's cache layer (``kv_cache.
+    LayerKV``), which takes the sequence's k / v; attention then reads them
+    in the cache's dtype, as one device reads its cache."""
     x = ctx.seq_full(xd, d)
-    n = ctx.n_tp
-    if cfg.n_heads % n:
-        raise ValueError(f"{cfg.n_heads} q heads do not split over {n} model ranks")
+    n = _q_split(cfg, ctx)
     gathered = None if kv_override is not None else _kv_gathered(cfg, ctx, p, d)
-    parts = []
+    qs, ks, vs = [], [], []
     for m in range(n):
         pm = {k: v[m] for k, v in p.items()}
         xm = x.to(pm["wq"].device)
         q = _proj(xm, pm, "wq", "bq", cfg.n_heads // n, cfg.hd)
         if kv_override is not None:
             k, v = kv_override[0][m], kv_override[1][m]
-            kw = dict(causal=False, kv_len=k.shape[1])
         else:
             k, v = _kv_proj(cfg, pm, xm, m, n, gathered)
-            pos = positions.to(xm.device)
+            pos = ctx.to_rank(positions, d, m)
             q, k = _rope(cfg, q, pos), _rope(cfg, k, pos)
-            kw = dict(causal=causal, kv_len=x.shape[1])
-        parts.append(_attend(cfg, q, k.to(x.dtype), v.to(x.dtype), pm["wo"], window=window,
-                             q_offset=0, **kw))
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    if kv is not None:
+        KV.write(ctx, kv, d, ks, vs, 0, (cfg.n_heads, cfg.n_kv_heads), _quantize_kv)
+        ks, vs = ([t.to(kv.k.dtype) for t in ts] for ts in (ks, vs))
+    if kv_override is not None:
+        kw = dict(causal=False, kv_len=ks[0].shape[1])
+    else:
+        kw = dict(causal=causal, kv_len=x.shape[1])
+    parts = [_attend(cfg, q, k.to(x.dtype), v.to(x.dtype), p["wo"][m], window=window,
+                     q_offset=0, **kw) for m, (q, k, v) in enumerate(zip(qs, ks, vs))]
+    return ctx.row_end(parts, d, isinstance(xd, tuple))
+
+
+def _q_split(cfg: ArchConfig, ctx) -> int:
+    """The compute ranks that split attention's q heads (raises where they
+    do not divide)."""
+    n = ctx.n_tp
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} q heads do not split over {n} model ranks")
+    return n
+
+
+def _attn_cached_tp(cfg: ArchConfig, ctx, p, xd, positions, d: int, *, window, kv,
+                    pos=None):
+    """A decode step's attention of data rank ``d`` over its placed cache
+    layer ``kv``: the new token's q / k / v column-parallel as in
+    ``_attn_tp``, its k / v written at ``pos`` (``kv_cache.write``), the
+    attention over the cache's positions [0, pos] (``kv_cache.attend``:
+    per sequence slice through the flash kernel's lse, then combined), and
+    ``wo`` row-parallel. ``pos`` None: cross attention over every position
+    of ``kv`` (no write, no rope)."""
+    x = ctx.seq_full(xd, d)
+    n = _q_split(cfg, ctx)
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    cross = pos is None
+    gathered = None if cross else _kv_gathered(cfg, ctx, p, d)
+    qs, ks, vs = [], [], []
+    for m in range(n):
+        pm = {k: v[m] for k, v in p.items()}
+        xm = x.to(pm["wq"].device)
+        q = _proj(xm, pm, "wq", "bq", cfg.n_heads // n, cfg.hd)
+        if not cross:
+            k, v = _kv_proj(cfg, pm, xm, m, n, gathered)
+            ps = ctx.to_rank(positions, d, m)
+            q, k = _rope(cfg, q, ps), _rope(cfg, k, ps)
+            ks.append(k)
+            vs.append(v)
+        qs.append(q)
+    if cross:
+        kw = dict(kv_len=kv.k.shape[1], causal=False, window=NO_WINDOW)
+    else:
+        KV.write(ctx, kv, d, ks, vs, pos, heads, _quantize_kv)
+        kw = dict(kv_len=pos + 1, causal=True, window=window)
+    outs = KV.attend(ctx, kv, d, qs, softcap=cfg.attn_softcap, heads=heads, **kw)
+    B = x.shape[0]
+    parts = [o.reshape(B, 1, -1) @ p["wo"][m].to(o.dtype) for m, o in enumerate(outs)]
     return ctx.row_end(parts, d, isinstance(xd, tuple))
 
 
 def _block_tp(x: Act, p, cfg: ArchConfig, positions, *, window, causal=True,
-              cross_kv=None):
+              cross_kv=None, kv=None, pos=None):
     """``_attn_mlp_block`` over the mesh: attention per data rank, the MLP
-    per data rank or the MoE over all of them (global routing)."""
+    per data rank or the MoE over all of them (global routing). Serving:
+    ``kv`` is the layer's placed cache (``kv_cache.LayerKV``), written by a
+    prefill (``pos`` None) or written and read by a decode step at ``pos``;
+    a decode step's ``cross_kv`` is the cross cache's ``LayerKV``."""
     ctx = TP.current()
     eps = cfg.norm_eps
 
     def norm(t, w):
         return rms_norm(t, w, eps)
 
-    views = [ctx.view(p, d) for d in range(ctx.n_dp)]
-    parts = []
-    for d, (xd, pv) in enumerate(zip(x.parts, views)):
-        h = _attn_tp(cfg, ctx, pv["attn"], ctx.rowwise(norm, xd, pv["ln_attn"]),
-                     positions[d], d, window=window, causal=causal)
+    views = ctx.each(lambda d: ctx.view(p, d))
+
+    def attn(d):
+        xd, pv = x.parts[d], views[d]
+        normed = ctx.rowwise(norm, xd, pv["ln_attn"])
+        if kv is not None and pos is not None:
+            h = _attn_cached_tp(cfg, ctx, pv["attn"], normed, positions[d], d, window=window,
+                                kv=kv, pos=pos)
+        else:
+            h = _attn_tp(cfg, ctx, pv["attn"], normed, positions[d], d, window=window,
+                         causal=causal, kv=kv)
         if cfg.sandwich_norm:
             h = ctx.rowwise(norm, h, pv["ln_attn_post"])
         xd = ctx.add(xd, h)
         if "cross" in pv:
-            xd = ctx.add(xd, _attn_tp(cfg, ctx, pv["cross"], ctx.rowwise(norm, xd, pv["ln_cross"]),
-                                      positions[d], d, window=window, kv_override=cross_kv[d]))
-        parts.append(xd)
-    h_in = [ctx.rowwise(norm, xd, pv["ln_mlp"]) for xd, pv in zip(parts, views)]
+            normed = ctx.rowwise(norm, xd, pv["ln_cross"])
+            if isinstance(cross_kv, KV.LayerKV):
+                h = _attn_cached_tp(cfg, ctx, pv["cross"], normed, positions[d], d,
+                                    window=window, kv=cross_kv)
+            else:
+                h = _attn_tp(cfg, ctx, pv["cross"], normed, positions[d], d, window=window,
+                             kv_override=cross_kv[d])
+            xd = ctx.add(xd, h)
+        return xd
+    parts = ctx.each(attn)
+    h_in = ctx.each(lambda d: ctx.rowwise(norm, parts[d], views[d]["ln_mlp"]))
     aux = 0.0
     if cfg.n_experts:
         if cfg.moe_impl == "dense":
@@ -882,76 +977,134 @@ def _block_tp(x: Act, p, cfg: ArchConfig, positions, *, window, causal=True,
                              "path; the mesh runs the sorted dispatch")
         hs, aux = MOE.moe_tp(ctx, [pv["moe"] for pv in views], h_in, cfg.moe_top_k)
     else:
-        hs = [F.mlp_tp(ctx, pv["mlp"], hd, cfg.mlp_act, d) for d, (hd, pv) in
-              enumerate(zip(h_in, views))]
+        hs = ctx.each(lambda d: F.mlp_tp(ctx, views[d]["mlp"], h_in[d], cfg.mlp_act, d))
     if cfg.sandwich_norm:
-        hs = [ctx.rowwise(norm, h, pv["ln_mlp_post"]) for h, pv in zip(hs, views)]
-    return shard_act(Act([ctx.add(xd, h) for xd, h in zip(parts, hs)]), "btd"), aux
+        hs = ctx.each(lambda d: ctx.rowwise(norm, hs[d], views[d]["ln_mlp_post"]))
+    return shard_act(Act(ctx.each(lambda d: ctx.add(parts[d], hs[d]))), "btd"), aux
 
 
 def _run_layers_tp(cfg: ArchConfig, stacked, x: Act, positions, *, causal=True,
-                   cross_kv=None):
-    """``_run_layers`` over the mesh; ``cross_kv[i][d]``: layer i's cross
-    (k, v) per compute rank of data rank d."""
+                   cross_kv=None, kv=None, pos=None):
+    """``_run_layers`` over the mesh; ``cross_kv[i]``: layer i's cross (k, v)
+    per data rank per compute rank, or (decode) its cross cache's
+    ``LayerKV``; ``kv[i]``: layer i's self-attention cache (serving)."""
     aux = 0.0
     layers = _unstack_placed(stacked)
     for i, (p, window) in enumerate(zip(layers, _layer_windows(cfg, len(layers)))):
         block = functools.partial(_block_tp, p=p, cfg=cfg, positions=positions, window=window,
                                   causal=causal,
-                                  cross_kv=None if cross_kv is None else cross_kv[i])
+                                  cross_kv=None if cross_kv is None else cross_kv[i],
+                                  kv=None if kv is None else kv[i], pos=pos)
         x, a = _remat_act(cfg, block, x)
         aux = aux + a
     return x, aux
 
 
-def _gathered_block(x: Act, p, fn):
+def _gathered_block(x: Act, p, fn, states=None):
     """A block whose weights each data rank gathers whole first (recorded),
     then runs as one device: the Mamba-2 and xLSTM blocks (their explicit
-    tensor parallelism is not written yet) and every block in fsdp mode."""
+    tensor parallelism is not written yet) and every block in fsdp mode.
+    ``states[d]``: data rank d's recurrent state, ``fn``'s third argument
+    (serving)."""
     ctx = TP.current()
-    parts = []
-    for d, xd in enumerate(x.parts):
-        xf = ctx.seq_full(xd, d)
-        parts.append(ctx.like(fn(xf, ctx.full_view(p, d)), xd, d))
-    return Act(parts)
+
+    def run(d):
+        xd = x.parts[d]
+        xf, w = ctx.seq_full(xd, d), ctx.full_view(p, d)
+        return ctx.like(fn(xf, w) if states is None else fn(xf, w, states[d]), xd, d)
+    return Act(ctx.each(run))
 
 
-def _forward_core_tp(cfg: ArchConfig, params, x: Act, positions):
+def _forward_core_tp(cfg: ArchConfig, params, x: Act, positions, *, cache=None, pos=None):
+    """``forward_core`` over the mesh. Serving: ``cache`` is the placed cache
+    (a tree of ``Blocks``), written by a prefill (``pos`` None) or written
+    and read by a decode step at ``pos``; the recurrent states are read per
+    data rank (``_states``) and written back at the end."""
     fam = _family(cfg)
     if fam in ("dense", "moe", "vlm"):
-        return _run_layers_tp(cfg, params["layers"], x, positions)
+        return _run_layers_tp(cfg, params["layers"], x, positions,
+                              kv=None if cache is None else KV.layers(cache), pos=pos)
+    ctx = TP.current()
     aux = 0.0
     if fam == "hybrid":
-        G = cfg.n_layers // cfg.attn_every
+        G, n = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        states, back = _states(ctx, None if cache is None else cache["ssm"], 1)
+        kvs = None if cache is None else KV.layers(cache)
         for g, layers in enumerate(_zamba_groups(cfg, params, _unstack_placed)):
-            for p in layers:
-                fn = functools.partial(_mamba_layer, cfg=cfg, ssm_cache=None, li=0)
-                x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn), x)
+            for j, p in enumerate(layers):
+                if states is None:
+                    fn = functools.partial(_mamba_layer, cfg=cfg, ssm_cache=None, li=0)
+                else:
+                    fn = functools.partial(_mamba_state, cfg=cfg, li=g * n + j)
+                x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn,
+                                                      states=states), x)
             if g < G:
-                x, a = _block_tp(x, params["shared_attn"], cfg, positions, window=NO_WINDOW)
+                x, a = _block_tp(x, params["shared_attn"], cfg, positions, window=NO_WINDOW,
+                                 kv=None if kvs is None else kvs[g], pos=pos)
                 aux = aux + a
+        back()
         return x, aux
-    for p in _unstack_placed(params["super"]):  # ssm: xlstm
-        fn = functools.partial(_xlstm_super, cfg=cfg, cache_m=None, cache_s=None)
-        x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn), x)
+    ms, back_m = _states(ctx, None if cache is None else cache["mlstm"], 2)
+    ss, back_s = _states(ctx, None if cache is None else cache["slstm"], 1)
+    for i, p in enumerate(_unstack_placed(params["super"])):  # ssm: xlstm
+        if ms is None:
+            fn, st = functools.partial(_xlstm_super, cfg=cfg, cache_m=None, cache_s=None), None
+        else:
+            fn = functools.partial(_xlstm_state, cfg=cfg)
+            st = [(_layer(m, i), _layer(s_, i)) for m, s_ in zip(ms, ss)]
+        x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn, states=st), x)
+    back_m()
+    back_s()
     return x, aux
+
+
+def _mamba_state(x, p, state, *, cfg, li):
+    return _mamba_layer(x, p, cfg, state, li)
+
+
+def _xlstm_state(x, p, state, *, cfg):
+    return _xlstm_super(x, p, cfg, *state)
+
+
+def _states(ctx, state, axis: int):
+    """Each data rank's rows of a placed stacked recurrent state (a
+    NamedTuple of ``Blocks``, batch at ``axis``) as local tensors on its
+    device (``read_box``: its own block when that block holds just them),
+    and a function that writes them back into every block that holds them
+    (``write_box``). (None, a no-op) without a state."""
+    if state is None:
+        return None, lambda: None
+
+    def read(d):
+        out = []
+        for b in state:
+            r0, r1 = ctx.rows(b.shape[axis], d)
+            origin = tuple(r0 if k == axis else 0 for k in range(b.ndim))
+            size = tuple(r1 - r0 if k == axis else n for k, n in enumerate(b.shape))
+            out.append((b, read_box(b, origin, size, ctx.dev(d), record=d == 0), origin))
+        return out
+    spots = ctx.each(read)
+
+    def back():
+        for d, leaves in enumerate(spots):
+            if d == 0 or not ctx.mirror:
+                for b, t, origin in leaves:
+                    write_box(b, t, origin)
+    return [type(state)(*(t for _, t, _ in leaves)) for leaves in spots], back
 
 
 def _cross_kv_tp(cfg: ArchConfig, ctx, params, enc: list) -> list:
     """Per decoder layer, per data rank: each compute rank's cross (k, v)
     from the encoder output (column-parallel ``wk`` / ``wv``, no bias, as
     ``_cross_kv``)."""
-    out = []
-    for p in _unstack_placed(params["dec_layers"]["cross"]):
-        per_d = []
-        for d, e in enumerate(enc):
-            pv = ctx.view(p, d)
-            gathered = _kv_gathered(cfg, ctx, pv, d, ("wk", "wv"))
-            kv = [_kv_proj(cfg, {k: pv[k][m] for k in ("wk", "wv")}, e.to(pv["wk"][m].device),
-                           m, ctx.n_tp, gathered, bias=False) for m in range(ctx.n_tp)]
-            per_d.append(([k for k, _ in kv], [v for _, v in kv]))
-        out.append(per_d)
-    return out
+    def one(p, d):
+        e, pv = enc[d], ctx.view(p, d)
+        gathered = _kv_gathered(cfg, ctx, pv, d, ("wk", "wv"))
+        kv = [_kv_proj(cfg, {k: pv[k][m] for k in ("wk", "wv")}, e.to(pv["wk"][m].device),
+                       m, ctx.n_tp, gathered, bias=False) for m in range(ctx.n_tp)]
+        return [k for k, _ in kv], [v for _, v in kv]
+    return [ctx.each(functools.partial(one, p))
+            for p in _unstack_placed(params["dec_layers"]["cross"])]
 
 
 def _place(params, mesh):
@@ -972,7 +1125,7 @@ def _train_loss_tp(cfg: ArchConfig, params, batch: dict, mesh) -> torch.Tensor:
     ctx = TP.ShardCtx.for_params(mesh, params)
     with TP.active(ctx):
         eps = cfg.norm_eps
-        vocab = [TP.Vocab(ctx, params, d) for d in range(ctx.n_dp)]
+        vocab = ctx.each(lambda d: TP.Vocab(ctx, params, d))
         toks = ctx.split_batch(torch.as_tensor(batch["tokens"], device=ctx.dev(0)).long())
         B, S = toks[0].shape
 
@@ -996,24 +1149,170 @@ def _train_loss_tp(cfg: ArchConfig, params, batch: dict, mesh) -> torch.Tensor:
                    for d, xd in enumerate(xe.parts)]
             ckv = _cross_kv_tp(cfg, ctx, params, enc)
             positions = [_positions_for(cfg, B, S, device=ctx.dev(d)) for d in range(ctx.n_dp)]
-            x = shard_act(Act([embed(d, False) for d in range(ctx.n_dp)]), "btd")
+            x = shard_act(Act(ctx.each(lambda d: embed(d, False))), "btd")
             h, _ = _run_layers_tp(cfg, params["dec_layers"], x, positions, cross_kv=ckv)
             targets = [_next_token(t) for t in toks]
         else:
             vis = split("vision_embeds") if fam == "vlm" else [None] * ctx.n_dp
-            inputs = [_lm_input(cfg, embed(d, v is not None),
-                                None if v is None else v.to(ACT_DTYPE), B, S, ctx.dev(d))
-                      for d, v in enumerate(vis)]
+            inputs = ctx.each(lambda d: _lm_input(
+                cfg, embed(d, vis[d] is not None),
+                None if vis[d] is None else vis[d].to(ACT_DTYPE), B, S, ctx.dev(d)))
             h, aux = _forward_core_tp(cfg, params, shard_act(Act([x for x, _, _ in inputs]),
                                                              "btd"),
                                       [pos for _, pos, _ in inputs])
             targets = [_next_token(t, n) for t, (_, _, n) in zip(toks, inputs)]
-        tots, cnts = [], []
-        for d, hd in enumerate(h.parts):
-            hf = rms_norm(ctx.seq_full(hd, d), ctx.full(params["ln_final"], d), eps)
-            tot, cnt = _xent_sums(functools.partial(vocab[d].logz_gold, cap=cfg.logit_softcap),
-                                  hf, *targets[d])
-            tots.append(tot)
-            cnts.append(cnt)
+        def xent(d):
+            hf = rms_norm(ctx.seq_full(h.parts[d], d), ctx.full(params["ln_final"], d), eps)
+            return _xent_sums(functools.partial(vocab[d].logz_gold, cap=cfg.logit_softcap),
+                              hf, *targets[d])
+        sums = ctx.each(xent)
+        tots, cnts = [t for t, _ in sums], [c for _, c in sums]
         loss = ctx.psum_data(tots) / torch.clamp(ctx.psum_data(cnts), min=1.0)
         return loss + 0.01 * aux if fam != "encdec" else loss
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh: prefill / decode_step under use_mesh
+# --------------------------------------------------------------------------
+
+
+def _serve_ctx(mesh, params, B: int):
+    """The sharded computation of a batch of ``B``: split over the data
+    ranks when they divide it (the cache's rule), else computed once, as
+    data rank 0 (``ShardCtx(split_data=False)``)."""
+    ctx = TP.ShardCtx.for_params(mesh, params)
+    return ctx if B % ctx.n_dp == 0 else TP.ShardCtx.for_params(mesh, params, False)
+
+
+def _place_cache(cache: dict, mesh) -> dict:
+    """A cache as a tree of ``Blocks``: a placed one as it is, full tensors
+    placed by ``cache_shardings`` (a long context's ``shard_seq`` layout is
+    the caller's to place)."""
+    if any(isinstance(b, Blocks) for _, b in _leaves(cache)):
+        return cache
+    return shard_tree(cache, cache_shardings(cache, mesh))
+
+
+def _embed_tp(cfg: ArchConfig, ctx, vocab: list, toks: list, prefix: bool) -> list:
+    """Each data rank's token embeddings (vocab-parallel lookups)."""
+    S = toks[0].shape[1]
+
+    def one(d):
+        e = vocab[d].lookup(toks[d], ctx.sp and not prefix and S % ctx.n_tp == 0, ACT_DTYPE)
+        return (tuple(map(functools.partial(_embed_scaled, cfg), e)) if isinstance(e, tuple)
+                else _embed_scaled(cfg, e))
+    return ctx.each(one)
+
+
+def _last_logits_tp(cfg: ArchConfig, ctx, params, vocab: list, h: Act) -> torch.Tensor:
+    """(B, 1, V) float32 logits of the last position of every data rank's
+    hidden states (vocab-parallel, all-gathered over ``model`` then over the
+    data ranks, on data rank 0's device)."""
+    def one(d):
+        hl = rms_norm(ctx.seq_full(h.parts[d], d)[:, -1:], ctx.full(params["ln_final"], d),
+                      cfg.norm_eps)
+        return vocab[d].logits(hl, cfg.logit_softcap)
+    return ctx.gather_data(ctx.each(one), 0)
+
+
+def _prefill_tp(cfg: ArchConfig, params, batch: dict, mesh):
+    """``prefill`` on ``mesh``: the batch split over the data ranks (when
+    they divide it), the blocks tensor-parallel (or gathered, fsdp) as in
+    ``_train_loss_tp``, and a new cache of the prompt's length placed by
+    ``cache_shardings`` (its sequence over ``model``), which each attention
+    layer fills by an all-to-all from its head shards
+    (``kv_cache.write``). Returns (last logits (B, 1, V) f32, the placed
+    cache)."""
+    fam = _family(cfg)
+    params = _place(params, mesh)
+    tokens = torch.as_tensor(batch["tokens"]).long()
+    B, S = tokens.shape
+    ctx = _serve_ctx(mesh, params, B)
+    with TP.active(ctx):
+        vocab = ctx.each(lambda d: TP.Vocab(ctx, params, d))
+        toks = ctx.split_batch(tokens.to(ctx.dev(0)))
+        b = toks[0].shape[0]
+
+        def split(key):
+            return [t.to(ACT_DTYPE) for t in
+                    ctx.split_batch(torch.as_tensor(batch[key], device=ctx.dev(0)))]
+
+        if fam == "encdec":
+            frames = split("frames")
+            epos = [_positions_for(cfg, b, f.shape[1], device=f.device) for f in frames]
+            xe, _ = _run_layers_tp(cfg, params["enc_layers"], shard_act(Act(frames), "btd"),
+                                   epos, causal=False)
+            enc = ctx.each(lambda d: rms_norm(ctx.seq_full(xe.parts[d], d),
+                                              ctx.full(params["ln_enc"], d),
+                                              cfg.norm_eps)[:, :cfg.cross_len])
+            # fewer frames than cross_len: the cross k / v hold the frames' positions
+            cache = _placed_cache(cfg, B, S, mesh, enc[0].shape[1])
+            ckv = _cross_kv_tp(cfg, ctx, params, enc)
+            cross = KV.layers(cache, "ck", "cv")
+            heads = (cfg.n_heads, cfg.n_kv_heads)
+            for i, per_d in enumerate(ckv):
+                def write(d, i=i, per_d=per_d):
+                    ks, vs = per_d[d]
+                    KV.write(ctx, cross[i], d, ks, vs, 0, heads, _quantize_kv)
+                    return tuple([t.to(cache["ck"].dtype).to(ACT_DTYPE) for t in ts]
+                                 for ts in (ks, vs))
+                ckv[i] = ctx.each(write)
+            positions = [_positions_for(cfg, b, S, device=ctx.dev(d)) for d in range(ctx.n_dp)]
+            x = shard_act(Act(_embed_tp(cfg, ctx, vocab, toks, False)), "btd")
+            h, _ = _run_layers_tp(cfg, params["dec_layers"], x, positions, cross_kv=ckv,
+                                  kv=KV.layers(cache))
+        else:
+            vis = split("vision_embeds") if fam == "vlm" else [None] * ctx.n_dp
+            xs = _embed_tp(cfg, ctx, vocab, toks, fam == "vlm")
+            inputs = [_lm_input(cfg, x, v, b, S, ctx.dev(d))
+                      for d, (x, v) in enumerate(zip(xs, vis))]
+            n_vis = 0 if vis[0] is None else vis[0].shape[1]
+            cache = _placed_cache(cfg, B, n_vis + S, mesh)
+            h, _ = _forward_core_tp(cfg, params, shard_act(Act([x for x, _, _ in inputs]), "btd"),
+                                    [p for _, p, _ in inputs], cache=cache)
+        return _last_logits_tp(cfg, ctx, params, vocab, h), cache
+
+
+def _placed_cache(cfg: ArchConfig, B: int, S: int, mesh, cross_len: int | None = None) -> dict:
+    """A zero cache of (cfg, B, S) placed by ``cache_shardings``
+    (``placed_cache``); whisper's cross k / v hold ``cross_len``
+    positions."""
+    def specs():
+        out = cache_specs(cfg, B, S)
+        if cross_len is not None:
+            for key in ("ck", "cv"):
+                out[key] = out[key][:, :, :cross_len]
+        return out
+    return placed_cache(specs, mesh)
+
+
+def _decode_step_tp(cfg: ArchConfig, params, cache, tokens, pos: int, mesh):
+    """``decode_step`` on ``mesh``: ``cache`` is a tree of ``Blocks`` placed
+    by ``cache_shardings`` (full tensors are placed so; a long-context
+    cache placed with ``shard_seq``), updated in place. Each attention
+    layer writes the new k / v into the rank that owns slot ``pos`` and
+    attends per sequence slice (flash-decoding, ``kv_cache.attend``)."""
+    fam = _family(cfg)
+    params = _place(params, mesh)
+    cache = _place_cache(cache, mesh)
+    tokens = torch.as_tensor(tokens).long()
+    B = tokens.shape[0]
+    ctx = _serve_ctx(mesh, params, B)
+    with TP.active(ctx):
+        vocab = ctx.each(lambda d: TP.Vocab(ctx, params, d))
+        toks = ctx.split_batch(tokens.to(ctx.dev(0)))
+        b = toks[0].shape[0]
+        x = shard_act(Act(_embed_tp(cfg, ctx, vocab, toks, False)), "btd")
+        if cfg.mrope_sections:  # the collapsed text positions continue (1-based)
+            positions = [torch.full((b, 1, 3), pos - cfg.n_vision_tokens + 1, dtype=torch.int64,
+                                    device=ctx.dev(d)) for d in range(ctx.n_dp)]
+        else:
+            positions = [torch.full((b, 1), pos, dtype=torch.int64, device=ctx.dev(d))
+                         for d in range(ctx.n_dp)]
+        if fam == "encdec":
+            h, _ = _run_layers_tp(cfg, params["dec_layers"], x, positions,
+                                  cross_kv=KV.layers(cache, "ck", "cv"), kv=KV.layers(cache),
+                                  pos=pos)
+        else:
+            h, _ = _forward_core_tp(cfg, params, x, positions, cache=cache, pos=pos)
+        return _last_logits_tp(cfg, ctx, params, vocab, h), cache

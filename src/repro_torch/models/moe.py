@@ -199,36 +199,35 @@ def moe_tp(ctx, views: list, xds: list, top_k: int):
     x2 = [x.reshape(B * S, D) for x in xs]
     T = n_dp * B * S
     E = views[0]["router"][0].shape[-1]
-    routed, p_sums, c_sums = [], [], []
-    for d, x in enumerate(x2):
-        w, e, probs = _route(views[d]["router"][0], x, top_k)
-        routed.append((w, e))
-        p_sums.append(probs.sum(dim=0))
-        c_sums.append(F.one_hot(e[:, 0], E).float().sum(dim=0))
+    def route(d):
+        w, e, probs = _route(views[d]["router"][0], x2[d], top_k)
+        return w, e, probs.sum(dim=0), F.one_hot(e[:, 0], E).float().sum(dim=0)
+    routed = ctx.each(route)
+    p_sums, c_sums = [r[2] for r in routed], [r[3] for r in routed]
     me = ctx.psum_data(p_sums) / T
     ce = ctx.psum_data(c_sums) / T
     aux = E * torch.sum(me * ce)
-    weights = ctx.gather_data([w for w, _ in routed], 0)
-    experts = ctx.gather_data([e for _, e in routed], 0)
+    weights = ctx.gather_data([r[0] for r in routed], 0)
+    experts = ctx.gather_data([r[1] for r in routed], 0)
     X = ctx.gather_data(x2, 0)
     order, e_sorted, t_sorted, pos, keep, cap = _dispatch(experts, E, CAPACITY_FACTOR)
     w_sorted = weights.reshape(-1)[order]
     rows = _pair_rows(order, T).reshape(n_dp, B * S, -1)
     cb = -(-cap // n_dp)  # each data rank's capacity slots
-    y_bufs = []
-    for d in range(n_dp):
+    def experts(d):
         dev = ctx.dev(d)
         mine = keep & (torch.div(pos, cb, rounding_mode="floor") == d)
-        buf = _pack(X.to(dev), e_sorted.to(dev), t_sorted.to(dev),
+        buf = _pack(ctx.to_rank(X, d), e_sorted.to(dev), t_sorted.to(dev),
                     torch.where(mine, pos - d * cb, cb).to(dev), E, cb)
         parts = [_experts(buf.to(wg.device), wg, wd)
                  for wg, wd in zip(views[d]["w_gate"], views[d]["w_down"])]
-        y_bufs.append(ctx.row_end(parts, d, False))
-    out = []
-    for d, xd in enumerate(xds):
+        return ctx.row_end(parts, d, False)
+    y_bufs = ctx.each(experts)
+
+    def combine(d):
         dev = ctx.dev(d)
         y_buf = y_bufs[0] if n_dp == 1 else ctx.gather_data(y_bufs, 1, d)[:, :cap]
         y = _combine(y_buf, e_sorted.to(dev), pos.to(dev), keep.to(dev), w_sorted.to(dev),
-                     rows[d].to(dev))
-        out.append(ctx.like(y.reshape(B, S, D), xd, d))
-    return out, aux
+                     ctx.to_rank(rows[d], d))
+        return ctx.like(y.reshape(B, S, D), xds[d], d)
+    return ctx.each(combine), aux

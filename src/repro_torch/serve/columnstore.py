@@ -143,21 +143,24 @@ class ColumnStore:
     def device(self, vid: Vid) -> DeviceColumn:
         vid = norm_vid(vid)
         if vid not in self._device:
-            mat = self.host(vid)
-            n, d = mat.shape
-            np_pad = _round_up(n, self._row_mult()) - n
-            nd_pad = _round_up(d, self.block_dim) - d
-            if np_pad or nd_pad:
-                mat = np.pad(mat, ((0, np_pad), (0, nd_pad)))
-            mat = np.ascontiguousarray(mat)
-            if self.mesh is None:
-                col = DeviceColumn(vid=vid, data=torch.as_tensor(mat, device=self.torch_device),
-                                   n_rows=n, dim=d)
-            else:
-                col = DeviceColumn(vid=vid, data=None, n_rows=n, dim=d,
-                                   shards=row_sharding(self.mesh, self.axis).shard(mat))
-            self._device[vid] = col
+            self._device[vid] = self.upload(vid)
         return self._device[vid]
+
+    def upload(self, vid: Vid) -> DeviceColumn:
+        """Column ``vid`` padded on the host and put on the device (or the
+        mesh's row blocks); the store does not hold it yet."""
+        mat = self.host(vid)
+        n, d = mat.shape
+        np_pad = _round_up(n, self._row_mult()) - n
+        nd_pad = _round_up(d, self.block_dim) - d
+        if np_pad or nd_pad:
+            mat = np.pad(mat, ((0, np_pad), (0, nd_pad)))
+        mat = np.ascontiguousarray(mat)
+        if self.mesh is None:
+            return DeviceColumn(vid=vid, data=torch.as_tensor(mat, device=self.torch_device),
+                                n_rows=n, dim=d)
+        return DeviceColumn(vid=vid, data=None, n_rows=n, dim=d,
+                            shards=row_sharding(self.mesh, self.axis).shard(mat))
 
     def _row_mult(self) -> int:
         if self.mesh is None:

@@ -155,6 +155,12 @@ class MemoryGovernor:
             if key in self._lru:
                 self._lru.move_to_end(key)
 
+    def charged(self, tenant: TenantId, vid: Vid) -> bool:
+        """Whether (tenant, vid) holds a charge (acquired, not yet released
+        or evicted)."""
+        with self._lock:
+            return (tenant, vid) in self._lru
+
     def release(self, tenant: TenantId, vid: Vid) -> None:
         """Drop accounting for a column no longer resident (store-initiated
         evict/spill, or our own eviction completing)."""

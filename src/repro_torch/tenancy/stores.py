@@ -35,14 +35,27 @@ class GovernedColumnStore(ColumnStore):
 
     def device(self, vid: Vid) -> DeviceColumn:
         vid = norm_vid(vid)
-        if vid in self._device:
-            self.governor.touch(self.tenant, vid)
-            return self._device[vid]
-        # charge the padded footprint BEFORE materializing — the governor
-        # evicts cold columns (ours for a quota breach, anyone's for a
-        # budget breach) to make room
-        self.governor.acquire(self.tenant, vid, self.device_bytes(vid))
-        return super().device(vid)
+        gov = self.governor
+        while True:
+            # the check and its read, and the charge, under the governor's
+            # lock: a flush on another worker that admits a column and evicts
+            # this one cannot land between them (a KeyError)
+            with gov.lock:
+                col = self._device.get(vid)
+                if col is not None:
+                    gov.touch(self.tenant, vid)
+                    return col
+                # charge the padded footprint BEFORE materializing — the
+                # governor evicts cold columns (ours for a quota breach,
+                # anyone's for a budget breach) to make room
+                gov.acquire(self.tenant, vid, self.device_bytes(vid))
+            # the host pad and the upload outside it, so that a resident hit
+            # on another worker does not wait for them
+            col = self.upload(vid)
+            with gov.lock:
+                if gov.charged(self.tenant, vid):
+                    return self._device.setdefault(vid, col)
+            # evicted between the charge and the upload: charge it again
 
     def evict_device(self, vid: Vid) -> bool:
         evicted = super().evict_device(vid)

@@ -7,7 +7,9 @@ as JAX's are; the f32 master params and Adam moments absorb the rounding),
 ``microbatch`` accumulates the gradients of equal slices of the batch in
 float32, and remat comes from ``ArchConfig.remat`` (per-block
 recomputation in ``models.model``). The serve steps cast the parameters to
-bf16 first.
+bf16 first; under ``use_mesh`` they take placed parameters and caches (trees
+of ``Blocks``) and serve on the mesh (``models.model._prefill_tp`` /
+``_decode_step_tp``).
 """
 from __future__ import annotations
 
@@ -25,9 +27,12 @@ from repro_torch.train.optimizer import (AdamWState, adamw_apply, adamw_update,
 
 def cast_tree(tree, dtype):
     """Floating leaves cast to ``dtype``; a leaf already in it is returned
-    as it is (no copy), so a bf16 tree costs no memory."""
+    as it is (no copy), so a bf16 tree costs no memory. A placed leaf
+    (``Blocks``) casts its blocks."""
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, Blocks):
+        return tree.astype(dtype) if tree.dtype.is_floating_point else tree
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 

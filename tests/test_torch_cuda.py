@@ -758,3 +758,108 @@ def test_mesh_engine_on_card_equals_single_device_engine(cuda_device):
         np.testing.assert_array_equal(m1.ids, m2.ids)
         assert (m1.cost, m1.num_dist) == (m2.cost, m2.num_dist)
     assert mesh_eng.counters.as_dict() == one.counters.as_dict()
+
+
+# ---- serving on a mesh of the card, and the scan sweep --------------------------------
+
+
+def _serve(cfg, params, mesh, batch, steps, tokens=None):
+    """A prefill, a grow and ``steps`` decodes of ``params`` (placed on
+    ``mesh``) under ``use_mesh``: the logits of each, and the tokens fed."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, use_mesh
+    from repro_torch.models import model as M
+    placed = shard_tree(params, param_shardings(params, mesh))
+    S = batch["tokens"].shape[1]
+    with use_mesh(mesh), torch.no_grad():
+        logits, cache = M.prefill(cfg, placed, batch)
+        cache = M.grow_cache(cache, S + steps)
+        out, fed = [logits], []
+        for i in range(steps):
+            tok = logits.argmax(-1).cpu() if tokens is None else tokens[i]
+            fed.append(tok)
+            logits, cache = M.decode_step(cfg, placed, cache, tok, S + i)
+            out.append(logits)
+    return [x.float().cpu() for x in out], fed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2-7b", "gemma2-27b", "whisper-medium", "zamba2-1.2b"])
+def test_sharded_serving_on_card_equals_cpu(cuda_device, name):
+    """A prefill and 3 decode steps of a ``reduced()`` config on a (2, 4)
+    debug mesh of the card (each rank's prefill attention in the flash
+    kernel, each sequence shard's decode in its split-KV route with lse)
+    against the same mesh on the CPU (the plain versions), fed the card's
+    greedy tokens: logits within rtol 0.05 / atol 0.1; a repeat on the card
+    bit-equal."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    cfg = get_arch(name).reduced()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((4, cfg.cross_len, cfg.d_model)).astype(np.float32)
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    reset_launch_counts()
+    card, fed = _serve(cfg, _tree_to(params, cuda_device), make_debug_mesh(2, 4), batch, 3)
+    routes = dict(flash_attention.route_launches)
+    # the decode steps' shards take the split-KV route (a prefill this short
+    # may too: Sq x group <= 64)
+    assert routes["split_kv"] >= 3 * cfg.n_layers
+    again, _ = _serve(cfg, _tree_to(params, cuda_device), make_debug_mesh(2, 4), batch, 3, fed)
+    cpu, _ = _serve(cfg, params, make_debug_mesh(2, 4, device="cpu"), batch, 3, fed)
+    for a, b, c in zip(card, again, cpu):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=0.05, atol=0.1)
+
+
+@pytest.mark.cuda
+def test_seq_shard_decode_on_card_equals_one_device(cuda_device):
+    """A long-context (``shard_seq``) decode at batch 1 over a random cache
+    whose 256 positions spread over the 8 ranks, at slot 100: one split-KV
+    launch with lse for each of the slices 0..3 that hold valid keys and
+    none for the others; logits within rtol 0.05 / atol 0.1 of one device's
+    on the card."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.sharding import (cache_shardings, param_shardings,
+                                                  shard_tree, use_mesh)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    cfg = get_arch("qwen2-7b").reduced()
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda_device)
+    cache = M.make_cache(cfg, 1, 256, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for t in (cache["k"], cache["v"]):
+        t.normal_(generator=gen)
+    mesh = make_debug_mesh(2, 4)
+    placed = shard_tree({k: t.clone() for k, t in cache.items()},
+                        cache_shardings(cache, mesh, shard_seq=True))
+    tok = torch.tensor([[7]])
+    with torch.no_grad():
+        want, _ = M.decode_step(cfg, params, cache, tok, 100)
+        reset_launch_counts()
+        with use_mesh(mesh):
+            got, _ = M.decode_step(cfg, shard_tree(params, param_shardings(params, mesh)),
+                                   placed, tok, 100)
+    assert flash_attention.route_launches["split_kv"] == 4 * cfg.n_layers
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=0.05, atol=0.1)
+
+
+@pytest.mark.cuda
+def test_scan_sweep_on_card_is_bit_equal(cuda_device):
+    """``streaming_vs_twopass(measure=True)`` on the card at two sizes: both
+    scans timed, their results bit-equal."""
+    from repro_torch.launch.roofline import streaming_vs_twopass
+    out = streaming_vs_twopass(ns=(2048, 8192), measure=True, device=cuda_device)
+    for row in out["sweep"]:
+        m = row["measured"]
+        assert m["equal"] and m["n_measured"] == row["n"]
+        assert m["streaming_ms"] > 0 and m["twopass_ms"] > 0
