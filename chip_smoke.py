@@ -30,11 +30,13 @@ into ``build/kernels/``), then:
      (``tensor_core`` for bf16 / f16, ``ffma`` for f32), the forward's lse
      (every route) against ``attention_lse_ref``, two backward calls bit for
      bit, and the serving forward bit for bit the lse-writing one's;
-  3. MINT's main path at real scale: the paper's 8-column pool at 1,000,000
-     rows, the bisimple workload (k = 100), ``Mint(index_kind="ivf")``
-     tuned at theta_recall = 0.9 / 4 indexes, indexes built, the MINT and
-     PerColumn plans served through ``BatchEngine`` (streaming scan), again
-     with the two-pass scan (ids must be equal), then 64-query bursts that
+  3. MINT's main path at real scale: the paper's 8-column pool at 500,000
+     rows (``--rows``; cut from the paper's 1,000,000 to keep the script in
+     half its time limit, printed as a ``scale_cut``), the bisimple
+     workload (k = 100), ``Mint(index_kind="ivf")`` tuned at theta_recall =
+     0.9 / 4 indexes, indexes built, the MINT and PerColumn plans served
+     through ``BatchEngine`` (streaming scan), again with the two-pass scan
+     (ids must be equal), then 64-query bursts that
      must take one scan dispatch per (group, index). Kernel launch counts are
      zeroed before and read after; every kernel must have run. The shape of
      the largest distance dispatch of each kind (IVF centroids, rerank union,
@@ -43,7 +45,7 @@ into ``build/kernels/``), then:
      CUDA events around each call behind a busy stream, median of 20)
      beside the plain version, one PyTorch library call and the bound, at
      those main-path shapes; the two-pass scan bit-equal to the streaming
-     scan at B = 1 and 64 over the 1,000,000-row column, and timed; top-k
+     scan at B = 1 and 64 over the main path's column, and timed; top-k
      also at its worst case (scores rising along each row);
   5. filtered serving on that tuned database (phase ``filter_path``):
      ``synth_attributes`` over its rows, the bisimple queries under Range
@@ -70,7 +72,7 @@ into ``build/kernels/``), then:
      without (ids equal), with the semantic cache (every re-arrival hits,
      probes scan the namespace's resident CUDA matrix, ids equal), observed
      (ids equal; ``launch/obs_report`` stage rows); an ``IngestRuntime``
-     with 1% inserts and 1% deletes and a forced async compaction (every
+     with ~10,000 inserts and deletes and a forced async compaction (every
      flush sees one (store, generation, table) state, flat ids equal the
      live oracle after the finalize); a drift to column 0 that fires one
      pooled retune (tune and shadow build on a worker thread while this
@@ -80,8 +82,8 @@ into ``build/kernels/``), then:
      the online rerank) held against its plain version and timed as in 4;
   9. three tenants over that tuned database (phase ``tenant_path``, each
      serving a third of the bisimple queries, 96 arrivals of a tenant-skew
-     trace with t0 the noisy neighbour and a third exact re-arrivals, 1%
-     inserts and 1% deletes on t2): a ``MultiTenantRuntime`` at one
+     trace with t0 the noisy neighbour and a third exact re-arrivals, 10,000
+     inserts and 10,000 deletes on t2): a ``MultiTenantRuntime`` at one
      micro-batch every 10 ms, ungoverned, then under a ``MemoryGovernor``
      budget of 2/3 of its peak with t0's quota half of its bytes (DRR and
      FIFO: the queue backs up, the two flush different batches and DRR
@@ -91,7 +93,8 @@ into ``build/kernels/``), then:
      a cache hit, t2's flat ids equal to the live oracle, and an explicit
      spill that lowers ``torch.cuda.memory_allocated`` by the column's padded
      bytes; then the auto-tuner (phase ``autotune_path``): its steady, churn
-     and tenant-skew replay scenarios at 100,000 rows and the
+     and tenant-skew replay scenarios at 10,000 rows (cut from 100,000 to
+     make room for ``sharded_ssm_path``, printed as ``scale_cut``) and the
      paper's sift1m and glove200 widths, 4 trials and the defaults at two
      fidelities on the card, the best trial's replay on the card equal to
      its trial (fingerprint, snapshot, objectives) and on the CPU equal in
@@ -99,7 +102,7 @@ into ``build/kernels/``), then:
      replays' largest dispatch held against its plain version and timed as
      in 4; then serving over a row-sharded mesh (phase ``mesh_path``):
      ``make_debug_mesh(4, 1)`` repeats the card over four data ranks of
-     250,016 rows, and against the single-device engine over the same
+     a quarter of the rows each, and against the single-device engine over the same
      store (a) the MINT and PerColumn plans through ``BatchEngine`` on the
      mesh give equal ids, numDist, costs and dispatch counters, (b) a
      64-query flat burst takes one dispatch and four scan launches and the
@@ -206,13 +209,29 @@ into ``build/kernels/``), then:
      all 8 ranks (cut from long_500k's 524,288, printed as ``scale_cut``);
      then the flash kernel at one rank's prefill call and one shard's decode
      call, held, timed beside its plain version and SDPA, and bounded;
-  20. the scan sweep (phase ``scan_sweep``): ``launch.roofline.
+  20. the Mamba-2 and xLSTM blocks split by head over the mesh's model axis
+     (phase ``sharded_ssm_path``): zamba2-1.2b (64 SSM heads, 16 a rank;
+     its shared attention 8 q heads a rank in the flash kernels) and
+     xlstm-350m (4 mLSTM heads, 1 a rank) at full width and depth on
+     ``make_debug_mesh(2, 4)``: a prefill of 2 x S tokens (S 2,048 for
+     zamba2, 256 for xlstm: its sLSTM loops over time on the host, printed
+     as ``scale_cut``) and 16 decode steps against one device's run on the
+     card (sharded_serve_path's tolerance and near-tie rule), a repeat
+     bit-equal; one tp training step (bf16 grads, remat) at 2 x S, its loss
+     within 1e-2 of one device's and a repeat bit-equal; the collectives by
+     kind per prefill, decode step and training step beside the bytes the
+     gathered blocks logged, no whole split weight delivered by any
+     collective, peak memory, prefill s, decode ms a step, step ms and
+     zamba2's flash launches by route; then the flash kernel at one zamba2
+     rank's prefill call and one sequence shard's decode call, held, timed
+     beside its plain version and SDPA, and bounded;
+  21. the scan sweep (phase ``scan_sweep``): ``launch.roofline.
      streaming_vs_twopass(measure=True)``: the modeled bytes of the streaming
      and two-pass scans and both timed per N (2,048 to 262,144; B 128, d 128,
      k 16, every 64th row dead), bit-equal at each N, the acceptance (at the
      largest N the two-pass score block exceeds the 50 MB L2 and moves >= 2x
      the bytes); the three kernels at the largest N held, timed and bounded;
-  21. the dry-run (phase ``dryrun``): ``launch.dryrun.run_cell`` on the meta
+  22. the dry-run (phase ``dryrun``): ``launch.dryrun.run_cell`` on the meta
      16 x 16 mesh for granite-moe-1b-a400m's decode_32k and prefill_32k, and
      the counting pass over train_path's step on meta, its FLOPs beside the
      analytic ``flops_per_step``.
@@ -255,8 +274,14 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    """One JSON line for a phase; ``at_s`` is the script's wall clock when it
+    was printed, so each phase's share of the time limit can be read off."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - T_START},
+                     default=float), flush=True)
 
 
 # ---- card facts --------------------------------------------------------------
@@ -641,6 +666,8 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
 
 SELECTIVITIES = (0.001, 0.01, 0.1, 0.5)
 ACCESSES = (None, "pre", "masked", "post")  # None: the planner's choice
+MAIN_ROWS_UNCUT = 1_000_000  # the paper's rows
+MAIN_ROWS = 500_000  # cut so the script ends in half its time limit on a slow host
 CHURN_ROWS = 10_000  # inserted and deleted each: 1% of the paper's rows each way
 GRAPH_ROWS_UNCUT = 100_000
 GRAPH_ROWS = 50_000  # cut to make room for mesh_path (host-numpy kNN pools)
@@ -749,7 +776,7 @@ def serve_checked(eng, two, pairs, gt, what: str) -> dict:
 
 def phase_filter_path(main: dict, dev) -> dict:
     """Filtered serving at the main path's scale: ``synth_attributes`` over
-    the 1,000,000 rows, the bisimple queries under Range predicates at four
+    its rows, the bisimple queries under Range predicates at four
     selectivities, one Eq and one that matches nothing, planned against the
     tuned configuration with the planner's access choice and with each
     forced access, served in batches (12 queries a batch)."""
@@ -830,7 +857,7 @@ def churned_table(db, attrs):
 
 
 def phase_mutation_path(main: dict, filt: dict, dev) -> dict:
-    """Mutated serving: the 1,000,000-row table after ``churned_table``'s
+    """Mutated serving: the main path's table after ``churned_table``'s
     10,000 inserts and 10,000 deletes; flat plans, the MINT plans and the
     filtered workload are served over base + delta; then the table is
     compacted (``Compactor``, ``swap_store``, ``rebase``) and the flat plans
@@ -845,7 +872,7 @@ def phase_mutation_path(main: dict, filt: dict, dev) -> dict:
     t_phase = t0 = time.perf_counter()
     table = churned_table(db, attrs)
     check(CompactionPolicy().should_compact(table) is None,
-          "1% churn each way should stay under the compaction policy")
+          f"{CHURN_ROWS} rows of churn each way should stay under the compaction policy")
     mv = MutationView(table, device=dev)
     for e in (eng, two):
         e.attach_mutations(mv)
@@ -1221,10 +1248,10 @@ def same_ids(a, b, what: str) -> None:
 
 
 def phase_online_path(main: dict, dev, queries: int) -> dict:
-    """The online runtime over the main path's tuned 1,000,000-row database:
+    """The online runtime over the main path's tuned database:
     sync vs async flush (staged and unstaged) on a real worker pool, the
     semantic cache (exact re-arrivals hit), the observer, an
-    ``IngestRuntime`` with 1% churn each way and a forced async compaction,
+    ``IngestRuntime`` with ~CHURN_ROWS of churn each way and a forced async compaction,
     then a drift to other columns that fires one pooled retune."""
     from dataclasses import replace
     from repro_torch.core.types import QueryPlan, Workload
@@ -1308,7 +1335,7 @@ def phase_online_path(main: dict, dev, queries: int) -> dict:
     check({"dispatch", "merge", "semcache_probe"} <= set(stage_rows),
           f"observed stages {sorted(stage_rows)}")
 
-    # 4. IngestRuntime: 1% inserts + 1% deletes, one forced async compaction.
+    # 4. IngestRuntime: ~CHURN_ROWS inserts and deletes, one forced async compaction.
     #    Maintenance is driven by hand, so the finalize (the atomic rebase)
     #    lands after the whole post-cut trace: every flush after the cut runs
     #    while the compaction is built or waits to be installed
@@ -1667,9 +1694,9 @@ def pctl(xs, q) -> float | None:
 
 
 def phase_tenant_path(main: dict, dev, arrivals: int) -> dict:
-    """Three tenants over the main path's tuned 1,000,000-row database and
+    """Three tenants over the main path's tuned database and
     its tuned result (no re-tune), each serving a third of the bisimple
-    queries, with 1% inserts and 1% deletes on t2: ungoverned (a), governed
+    queries, with CHURN_ROWS inserts and deletes on t2: ungoverned (a), governed
     under 2/3 of (a)'s peak with t0's quota half of its bytes, fair (b) and
     FIFO (c), each served at one micro-batch a service tick, and each tenant
     alone (d). Ids must be equal across all four; (b) and (c) must flush
@@ -1873,8 +1900,9 @@ def phase_tenant_path(main: dict, dev, arrivals: int) -> dict:
 
 # ---- the auto-tuner's replays on the card -----------------------------------------------
 
-AUTOTUNE_ROWS = 100_000  # cut from the paper's 1,000,000: each trial replays the whole
-AUTOTUNE_BUDGET_S = 120.0  # trace and scores recall against the host oracle
+AUTOTUNE_ROWS_UNCUT = 100_000  # cut from the paper's 1,000,000: each trial replays the
+AUTOTUNE_BUDGET_S = 120.0  # whole trace and scores recall against the host oracle
+AUTOTUNE_ROWS = 10_000  # cut again to make room for sharded_ssm_path (printed)
 AUTOTUNE_COLS = (("sift1m", 128), ("glove200", 200))  # data/vectors.py: PAPER_COLUMNS
 
 
@@ -1918,8 +1946,10 @@ def phase_autotune_path(dev, rows: int) -> dict:
     from repro_torch.autotune.replay import deployment
     from repro_torch.kernels import launch_counts, reset_launch_counts
     t_phase = time.perf_counter()
-    emit("scale_cut", autotune_rows=rows, paper_rows=1_000_000,
-         why="every trial replays its trace and scores recall against the host oracle")
+    emit("scale_cut", autotune_rows=rows, autotune_rows_uncut=AUTOTUNE_ROWS_UNCUT,
+         paper_rows=1_000_000,
+         why="every trial replays its trace and scores recall against the host oracle; "
+             "cut from 100,000 to make room for sharded_ssm_path in the time limit")
     scans = ScanCalls(dev)
     undo = scans.install()
     reset_launch_counts()
@@ -2030,7 +2060,7 @@ RERANK_CANDIDATES = 200_000
 
 
 def phase_mesh_path(main: dict, dev) -> dict:
-    """The main path's tuned 1,000,000-row database served over a 4-shard
+    """The main path's tuned database served over a 4-shard
     row mesh on the card (``make_debug_mesh(4, 1)``), against the
     single-device engine over the same store: (a) the MINT and PerColumn
     plans, (b) a 64-query flat burst, (c) flat and keep-masked flat scans
@@ -4044,19 +4074,31 @@ def phase_sharded_serve_path(dev, peaks) -> dict:
 
 
 def phase_sharded_serve_kernel_times(sv: dict, dev, peaks, errs: dict) -> list[dict]:
-    """The flash kernel at sharded_serve_path's two calls, held against its
-    plain version, timed beside it and one SDPA call of the same function,
-    bounded: one model rank's prefill call (q (1, 6, 2048, 64) of one data
-    rank in the model's strided layout, kv 2 heads, causal) and one
-    sequence shard's decode call with its lse (q (1, 24, 1, 64): every head,
-    gathered; its 516-position slice of the 2,064 kv positions of 8 heads)."""
-    import torch.nn.functional as F
+    """The flash kernel at sharded_serve_path's two calls (granite-moe-3b's
+    one model rank's prefill, q (1, 6, 2048, 64) of one data rank in the
+    model's strided layout, kv 2 heads, causal; one sequence shard's decode
+    with its lse, q (1, 24, 1, 64): every head, gathered, over its
+    516-position slice of the 2,064 kv positions of 8 heads):
+    ``mesh_flash_rows``."""
     from repro_torch.configs.base import get_arch
+    return mesh_flash_rows(get_arch(SERVE_MODEL), SERVE_MESH, SERVE_S, sv["launches"], dev,
+                           peaks, errs, ("tp_prefill", "seq_shard_decode"), "granite-moe-3b")
+
+
+def mesh_flash_rows(cfg, mesh_shape, S: int, launches: dict, dev, peaks, errs: dict,
+                    names: tuple, label: str) -> list[dict]:
+    """The flash kernel at a mesh-served model's two calls, held against
+    its plain version, timed beside it and one SDPA call of the same
+    function, bounded: one model rank's prefill call (its q and kv heads of
+    one data rank's PROMPTS / n_dp rows, S tokens, causal, bf16, in the
+    model's strided layout) and one sequence shard's decode call with its
+    lse (every q head, gathered, over its (S + DECODE_STEPS) / n_tp slice
+    of the cache)."""
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_lse
     from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_ref
     from repro_torch.kernels.parity import check_flash
-    cfg = get_arch(SERVE_MODEL)
-    n_dp, n_tp = SERVE_MESH
+    n_dp, n_tp = mesh_shape
     d, b = cfg.hd, PROMPTS // n_dp
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -4065,50 +4107,333 @@ def phase_sharded_serve_kernel_times(sv: dict, dev, peaks, errs: dict) -> list[d
                            dtype=torch.bfloat16).transpose(1, 2)
     rows = []
     # prefill: one model rank's heads of one data rank's rows
-    Hq, Hkv, S = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp, SERVE_S
+    Hq, Hkv = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
     q, k, v = heads(b, S, Hq), heads(b, S, Hkv), heads(b, S, Hkv)
     out = flash_attention(q, k, v)
     route = flash_attention.last_route[0]
-    check(route == "tensor_core", f"the sharded prefill call took {route}")
-    err = check_flash(out, attention_ref(q, k, v), "flash at the sharded prefill call")
+    check(route == "tensor_core", f"the {label} sharded prefill call took {route}")
+    err = check_flash(out, attention_ref(q, k, v), f"flash at the {label} sharded prefill call")
     errs["flash_attention"] = max(errs["flash_attention"], err)
     pairs = kept_pairs(S, S, True, 0)
     flops = 4.0 * b * Hq * d * pairs
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
     rows.append(table_row(
-        "flash_attention[tp_prefill]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
-        "src/repro/kernels/flash_attention/kernel.py:24", sv["launches"]["prefill"], err,
+        f"flash_attention[{names[0]}]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
+        "src/repro/kernels/flash_attention/kernel.py:24", launches["prefill"], err,
         cuda_ms(lambda: flash_attention(q, k, v)),
         cuda_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1),
         cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                        enable_gqa=True)),
         bound(nbytes, flops, peaks, rate="bf16"), shape=[b, Hq, Hkv, S, S, d],
-        call="granite-moe-3b sharded prefill, one model rank (causal, bf16)", flash_route=route,
+        call=f"{label} sharded prefill, one model rank (causal, bf16)", flash_route=route,
         library="sdpa (enable_gqa, is_causal)", kept_pairs=pairs, flops=flops, bytes=nbytes))
     # decode: one sequence shard's slice, every q head (gathered), with lse
-    Hq, Hkv, n = cfg.n_heads, cfg.n_kv_heads, (SERVE_S + DECODE_STEPS) // n_tp
+    Hq, Hkv, n = cfg.n_heads, cfg.n_kv_heads, (S + DECODE_STEPS) // n_tp
     q, k, v = heads(b, 1, Hq), heads(b, n, Hkv), heads(b, n, Hkv)
     out, lse = flash_attention_lse(q, k, v, causal=False)
     route = flash_attention.last_route[0]
-    check(route == "split_kv", f"the sharded decode call took {route}")
+    check(route == "split_kv", f"the {label} sharded decode call took {route}")
     want, want_lse = attention_lse_ref(q, k, v, causal=False)
-    err = check_flash(out, want, "flash at the sharded decode call")
+    err = check_flash(out, want, f"flash at the {label} sharded decode call")
     lse_err = (lse - want_lse).abs().max().item()
-    check(lse_err <= 1e-3, f"sharded decode call: lse differs by {lse_err:.3g}")
+    check(lse_err <= 1e-3, f"{label} sharded decode call: lse differs by {lse_err:.3g}")
     errs["flash_attention"] = max(errs["flash_attention"], err)
     flops = 4.0 * b * Hq * d * n
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
     rows.append(table_row(
-        "flash_attention[seq_shard_decode]", "cuda", "src/repro_torch/csrc/flash_split.cu",
-        "src/repro/kernels/flash_attention/kernel.py:24", sv["launches"]["decode"], err,
+        f"flash_attention[{names[1]}]", "cuda", "src/repro_torch/csrc/flash_split.cu",
+        "src/repro/kernels/flash_attention/kernel.py:24", launches["decode"], err,
         cuda_ms(lambda: flash_attention_lse(q, k, v, causal=False)),
         cuda_ms(lambda: attention_lse_ref(q, k, v, causal=False), reps=3, warmup=1),
         cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)),
         bound(nbytes, flops, peaks, rate="bf16"), shape=[b, Hq, Hkv, 1, n, d],
-        call="granite-moe-3b sharded decode, one sequence shard (every head, with lse)",
+        call=f"{label} sharded decode, one sequence shard (every head, with lse)",
         flash_route=route, splits=flash_attention.last_route[1], lse_max_abs_err=lse_err,
         library="sdpa (enable_gqa; no lse)", flops=flops, bytes=nbytes))
     return rows
+
+
+# ---- the Mamba-2 and xLSTM blocks split by head on a (2, 4) mesh of the card ---------
+
+# (config, prompt / training S). xlstm's S is cut (printed): its sLSTM loops
+# over time on the host, in the prefill, the remat's two forwards and the
+# backward; 256 keeps the phase near its budget (at 512 it took 71.0 s of
+# its 60 and the script 1,027.9 s on an NVIDIA H100 80GB HBM3 at 700 W)
+SSM_RUNS = (("zamba2-1.2b", 2048), ("xlstm-350m", 256))
+# the activations the serving check runs in. xlstm-350m's random bf16
+# recurrences are chaotic at 24 layers: one device's own bf16 prefill is
+# 0.24 mean / 1.5 max abs from its float32 one, and any other grouping of
+# the same products (a batch split over the data ranks alone: 0.61 max)
+# moves its bf16 logits past sharded_serve_path's bounds (a CPU run of
+# 2 x 128 tokens). So its mesh is held to one device in float32
+# activations (bf16 weights), where both compute one function, and in
+# bf16 no farther from that float32 run than one device's bf16 run is
+SSM_ACT = {"zamba2-1.2b": torch.bfloat16, "xlstm-350m": torch.float32}
+SSM_BF16_DRIFT = 1.5  # the mesh's bf16 drift from float32 over one device's, at most
+SSM_S_UNCUT = 2048  # families_path's prompt length
+SSM_MESH = (2, 4)   # (data, model): zamba2 16 SSM heads a rank, xlstm 1 mLSTM head
+SSM_BUDGET_S = 60.0  # the phase's share of the script's time limit, rows included
+SSM_PEAK_LIMIT = 70 * 10 ** 9  # zamba2's training peak past this would cut its S to 1,024
+SSM_SPLIT = ("in_proj", "out_proj", "up_proj", "q", "k", "v", "down_proj", "w_in")
+
+
+def gathered_block_bytes(cfg) -> int:
+    """The bytes one forward of a data rank all-gathered for its Mamba-2 /
+    xLSTM blocks when each gathered its split weights whole (bf16): the
+    weights of each layer, times the layers."""
+    D = cfg.d_model
+    if cfg.family == "hybrid":
+        di, N = cfg.ssm_expand * D, cfg.ssm_state
+        return 2 * (D * (2 * di + 2 * N + di // cfg.ssm_headdim) + di * D) * cfg.n_layers
+    di = int(cfg.proj_factor * D)
+    mlstm = 2 * (D * 2 * di + 3 * di * di + di * D)
+    slstm = 2 * (D * 4 * D + D * D)
+    n_super = cfg.n_layers // cfg.slstm_every
+    return n_super * ((cfg.slstm_every - 1) * mlstm + slstm)
+
+
+class WeightWatch:
+    """Notes the trailing two dims of every tensor a collective over
+    ``model`` delivers (``all_gather_dim``, ``tensor_parallel.take``,
+    ``ShardCtx.full``) while it is entered; ``whole(params)`` is what of
+    them equals a whole split weight of the Mamba-2 / xLSTM blocks."""
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives as C
+        from repro_torch.distributed import tensor_parallel as TP
+        self.C, self.TP, self.shapes = C, TP, set()
+        self.saved = C.all_gather_dim, TP.take, TP.ShardCtx.full
+        gather, take, full = self.saved
+
+        def note(out):
+            for t in (out if isinstance(out, list) else [out]):
+                if t is not None and t.ndim >= 2:
+                    self.shapes.add(tuple(t.shape[-2:]))
+            return out
+        C.all_gather_dim = lambda *a, **kw: note(gather(*a, **kw)) if a[2] == "model" \
+            else gather(*a, **kw)
+        TP.take = lambda *a, **kw: note(take(*a, **kw))
+        TP.ShardCtx.full = lambda ctx, leaf, d: note(full(ctx, leaf, d))
+        return self
+
+    def __exit__(self, *exc):
+        self.C.all_gather_dim, self.TP.take, self.TP.ShardCtx.full = self.saved
+        return False
+
+    def whole(self, params) -> list:
+        from repro_torch.models import model as M
+        split = {tuple(t.shape[-2:]) for path, t in M._leaves(params)
+                 if path[-1] in SSM_SPLIT and path[0] != "shared_attn"}
+        return sorted(self.shapes & split)
+
+
+def run_sharded_ssm(name: str, S: int, dev) -> dict:
+    """One model of phase ``sharded_ssm_path`` (see its docstring)."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, use_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.step import (cast_tree, make_prefill_step, make_serve_step,
+                                        make_sharded_train_step, sharded_adamw_init)
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(name), remat=True)
+    B, n = PROMPTS, DECODE_STEPS
+    n_dp, n_tp = SSM_MESH
+    L = S + n
+    check(L % n_tp == 0, f"cache of {L} does not split over {n_tp} model ranks")
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    batch = family_batch(cfg, B, S, seed=0, device=dev)
+    prompt = prompt_of(batch, S)
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    act = SSM_ACT[name]
+    M.ACT_DTYPE = act
+    with torch.no_grad():
+        want, cache = prefill_step(params, prompt)
+        cache = M.grow_cache(cache, L)
+        wants, toks = [want], [want.argmax(-1)]
+        for i in range(n):
+            logits, cache = serve_step(params, cache, toks[-1], S + i)
+            wants.append(logits)
+            toks.append(logits.argmax(-1))
+    del cache
+    mesh = make_debug_mesh(*SSM_MESH)
+    psh = param_shardings(params, mesh)
+    placed = shard_tree(params, psh)
+
+    def mesh_run(steps: int) -> dict:
+        out = dict(logits=[], step_ms=[])
+        with use_mesh(mesh), torch.no_grad():
+            reset_launch_counts()
+            mesh.log.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, c = prefill_step(placed, prompt)
+            torch.cuda.synchronize()
+            out.update(prefill_s=time.perf_counter() - t0, prefill_collectives=log_of(mesh),
+                       prefill_launches=launch_counts()["flash_attention"],
+                       prefill_routes=dict(flash_attention.route_launches))
+            c = M.grow_cache(c, L)
+            out["logits"].append(got)
+            reset_launch_counts()
+            mesh.log.clear()
+            torch.cuda.synchronize()
+            t_win = time.perf_counter()
+            for i in range(steps):
+                t0 = time.perf_counter()
+                got, c = serve_step(placed, c, toks[i], S + i)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["logits"].append(got)
+            out.update(decode_window_ms=(time.perf_counter() - t_win) * 1e3,
+                       decode_collectives=log_of(mesh),
+                       decode_launches=launch_counts()["flash_attention"],
+                       decode_routes=dict(flash_attention.route_launches))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with WeightWatch() as watch:
+        run = mesh_run(n)
+    serve_peak = torch.cuda.max_memory_allocated()
+    agree = [same_logits(g, w, f"{name} split by head, "
+                         f"{'prefill' if i == 0 else f'step {i - 1}'}", near_tie=True)
+             for i, (g, w) in enumerate(zip(run["logits"], wants))]
+    again = mesh_run(1)
+    check(all(torch.equal(a, b) for a, b in zip(again["logits"], run["logits"])),
+          f"{name}: a repeat of the prefill and first step split by head is not bit-equal")
+    del again
+    drift = None
+    if act != torch.bfloat16:  # the bf16 prefills' drift from one device's float32 one
+        M.ACT_DTYPE = torch.bfloat16
+        with torch.no_grad():
+            one16, _ = prefill_step(params, prompt)
+            with use_mesh(mesh):
+                mesh16, _ = prefill_step(placed, prompt)
+        drift = dict(one_device=(one16.float() - wants[0]).abs().mean().item(),
+                     mesh=(mesh16.float() - wants[0]).abs().mean().item(),
+                     mesh_vs_one_device_max=(mesh16.float() - one16.float()).abs().max().item())
+        check(drift["mesh"] <= SSM_BF16_DRIFT * drift["one_device"],
+              f"{name}: the mesh's bf16 prefill drifts {drift['mesh']:.4g} from float32, "
+              f"one device's {drift['one_device']:.4g}")
+        del one16, mesh16
+    M.ACT_DTYPE = torch.bfloat16
+    del wants
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        check(run["prefill_routes"].get("tensor_core", 0) == G * n_dp * n_tp,
+              f"{name} prefill flash routes {run['prefill_routes']}")
+        check(run["decode_routes"].get("split_kv", 0) == n * G * n_dp * n_tp,
+              f"{name} decode flash routes {run['decode_routes']}")
+    else:
+        check(run["prefill_launches"] == 0 and run["decode_launches"] == 0,
+              f"{name} launched flash attention")
+
+    # one tp training step at 2 x S (bf16 grads, remat) from f32 masters of
+    # the same weights, its loss against one device's, and its repeat
+    tbatch = {"tokens": batch["tokens"][:, :S]}
+    with torch.no_grad():
+        one_loss = float(M.train_loss(cfg, params, tbatch))
+    master = shard_tree(cast_tree(params, torch.float32), psh)
+    del placed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_sharded_train_step(cfg, bf16_grads=True, peak_lr=TRAIN_PEAK_LR, total_steps=2)
+    st = sharded_adamw_init(master, psh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    mesh.log.clear()
+    with WeightWatch() as twatch:
+        t0 = time.perf_counter()
+        new_p, new_st, m = step(master, st, tbatch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    train_log = log_of(mesh)
+    train_launches = dict(launch_counts())
+    train_peak = torch.cuda.max_memory_allocated()
+    check(train_peak <= SSM_PEAK_LIMIT, f"{name}: training peak {train_peak} bytes")
+    loss, gnorm = float(m["loss"]), float(m["gnorm"])
+    again_p, _, again_m = step(master, st, tbatch)
+    check(float(again_m["loss"]) == loss and float(again_m["gnorm"]) == gnorm,
+          f"{name}: a repeat of the tp training step gave another loss or gnorm")
+    for a, b in zip(tree_leaves(new_p), tree_leaves(again_p)):
+        check(all(torch.equal(x, y) for (_, x), (_, y) in zip(a.distinct(), b.distinct())),
+              f"{name}: a repeat of the tp training step gave other bits")
+    rel = abs(loss - one_loss) / abs(one_loss)
+    check(math.isfinite(loss) and math.isfinite(gnorm) and rel <= SHARD_LOSS_RTOL,
+          f"{name}: tp step-0 loss {loss} vs one device's {one_loss}: rel {rel:.3g}")
+    whole = watch.whole(master) + twatch.whole(master)
+    check(not whole, f"{name}: whole split weights delivered by a collective: {whole}")
+    del master, st, new_p, new_st, again_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    gathered = gathered_block_bytes(cfg)
+    return dict(model=name, mesh=list(SSM_MESH), layers=cfg.n_layers, d_model=cfg.d_model,
+                heads=cfg.n_heads, prompts=B, prompt_len=S, decode_steps=n,
+                serve_activations=str(act).removeprefix("torch."), bf16_prefill_drift=drift,
+                prefill_s=run["prefill_s"], decode_ms_per_step=run["decode_window_ms"] / n,
+                decode_ms_per_step_median=statistics.median(run["step_ms"]),
+                prefill_collectives=run["prefill_collectives"],
+                decode_collectives_per_step={k: {kk: vv / n for kk, vv in v.items()}
+                                             for k, v in run["decode_collectives"].items()},
+                train_step_collectives=train_log,
+                gathered_path_all_gather_bytes=dict(
+                    prefill=gathered, decode_step=gathered, train_step_remat=2 * gathered),
+                whole_weights_delivered=whole, logits_vs_one_device=agree,
+                repeat_bit_equal=True, max_memory_allocated_bytes=dict(
+                    serve=serve_peak, train=train_peak),
+                prefill_flash_launches=run["prefill_launches"],
+                prefill_flash_routes=run["prefill_routes"],
+                decode_flash_launches=run["decode_launches"],
+                decode_flash_routes=run["decode_routes"], train_step_ms=step_ms,
+                train_loss=loss, train_gnorm=gnorm, one_device_loss=one_loss, train_rel=rel,
+                train_launches=train_launches, seconds=time.perf_counter() - t_model)
+
+
+def phase_sharded_ssm_path(dev) -> dict:
+    """zamba2-1.2b and xlstm-350m at full width and depth, random bf16
+    weights from a seed, their Mamba-2 / xLSTM blocks split by head over
+    the 4 model ranks of ``make_debug_mesh(2, 4)`` of the card (tp mode),
+    each freed before the next (``run_sharded_ssm``): a prefill of 2 x S
+    and 16 greedy decode steps against one device's run on the card
+    (sharded_serve_path's bounds), a repeat of the prefill and first step
+    bit-equal; one tp training step (bf16 grads, remat) at 2 x S, its loss
+    within SHARD_LOSS_RTOL of one device's, a repeat bit-equal; no
+    collective delivers a whole split weight of those blocks. Flash launch
+    counts are zeroed before each mesh run and read after it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left < 1 << 30, f"{left} bytes still allocated before the SSM blocks split by head")
+    t_phase = time.perf_counter()
+    out = {}
+    for name, S in SSM_RUNS:
+        if S < SSM_S_UNCUT:
+            emit("scale_cut", what=f"{name} split by head: prompt and training tokens",
+                 seq_len=S, seq_len_uncut=SSM_S_UNCUT,
+                 why="its sLSTM loops over time on the host: 2 x S steps a layer, "
+                     "again in the training step's remat and backward; the phase's "
+                     "budget")
+        out[name] = run_sharded_ssm(name, S, dev)
+        emit("sharded_ssm_path", **out[name])
+    emit("sharded_ssm_path_done", seconds=time.perf_counter() - t_phase, budget_s=SSM_BUDGET_S)
+    z = out["zamba2-1.2b"]
+    return dict(runs=out, launches=dict(prefill=z["prefill_flash_launches"],
+                                        decode=z["decode_flash_launches"]))
+
+
+def phase_sharded_ssm_kernel_times(ssm: dict, dev, peaks, errs: dict) -> list[dict]:
+    """The flash kernel at zamba2-1.2b's two calls of sharded_ssm_path (its
+    shared attention: one model rank's prefill, q (1, 8, 2048, 64) with 8
+    kv heads, causal; one sequence shard's decode with lse, q (1, 32, 1,
+    64) over 516 of the 2,064 positions): ``mesh_flash_rows``."""
+    from repro_torch.configs.base import get_arch
+    return mesh_flash_rows(get_arch("zamba2-1.2b"), SSM_MESH, dict(SSM_RUNS)["zamba2-1.2b"],
+                           ssm["launches"], dev, peaks, errs,
+                           ("zamba2_tp_prefill", "zamba2_tp_decode"), "zamba2-1.2b")
 
 
 def phase_scan_sweep(dev, peaks, errs: dict) -> list[dict]:
@@ -4242,9 +4567,10 @@ def _tree_to(tree, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=1_000_000,
-                    help="rows of the main-path database (cut only if the time "
-                         "limit forces it; the cut is printed)")
+    ap.add_argument("--rows", type=int, default=MAIN_ROWS,
+                    help="rows of the main-path database (cut from the paper's "
+                         "1,000,000 to keep the script in half its time limit; "
+                         "the cut is printed)")
     ap.add_argument("--online-queries", type=int, default=ONLINE_QUERIES_CUT,
                     help="arrivals of the online path's traces (cut from 96 to make "
                          "room for the sharded training and serving phases; the cut "
@@ -4285,8 +4611,10 @@ def main() -> int:
         phase_kernel_grid(dev, errs)
         phase_flash_grid(dev, errs)
         phase_flash_bwd_grid(dev, errs)
-        if args.rows != 1_000_000:
-            emit("scale_cut", rows=args.rows, paper_rows=1_000_000)
+        if args.rows != MAIN_ROWS_UNCUT:
+            emit("scale_cut", rows=args.rows, paper_rows=MAIN_ROWS_UNCUT,
+                 why="half the time limit on a slow host (the host-bound MINT "
+                     "phases scale with the rows)")
         main_path = phase_main_path(args.rows, dev)
         rows = phase_kernel_times(main_path, dev, peaks, errs)
         filt = phase_filter_path(main_path, dev)
@@ -4343,6 +4671,9 @@ def main() -> int:
         serve = phase_sharded_serve_path(dev, peaks)
         rows += phase_sharded_serve_kernel_times(serve, dev, peaks, errs)
         del serve
+        ssm = phase_sharded_ssm_path(dev)
+        rows += phase_sharded_ssm_kernel_times(ssm, dev, peaks, errs)
+        del ssm
         rows += phase_scan_sweep(dev, peaks, errs)
         phase_dryrun()
         emit("serve_sweep_dryrun_done", seconds=time.perf_counter() - t_new,

@@ -119,13 +119,15 @@ def all_gather_dim(per_rank: list[torch.Tensor], mesh, axis, dim: int,
 
 def psum(per_rank: list[torch.Tensor], mesh, axis,
          home: torch.device, *, record: bool = True) -> torch.Tensor:
-    """The elementwise sum of the ranks' tensors on ``home``, in rank order."""
+    """The elementwise sum of the ranks' tensors on ``home``, in rank order
+    (a rank that holds None adds nothing: one without a part to sum)."""
     _check(per_rank, mesh, axis)
+    live = [t for t in per_rank if t is not None]
     with trace().quiet():
-        out = per_rank[0].to(home)
-        for t in per_rank[1:]:
+        out = live[0].to(home)
+        for t in live[1:]:
             out = out + t.to(home)
-    trace().deliver([out], per_rank, mesh, axis)
+    trace().deliver([out], live, mesh, axis)
     if record:
         mesh.record("all-reduce", _nbytes(out))
     return out
@@ -160,15 +162,17 @@ def reduce_scatter(per_rank: list[torch.Tensor], mesh, axis, dim: int,
                    devices: list, *, record: bool = True) -> list[torch.Tensor]:
     """The ranks' elementwise sum (in rank order), cut along ``dim`` into one
     block per rank (ceil-sized, the last zero-padded); block r on
-    ``devices[r]`` (``jax.lax.psum_scatter(..., tiled=True)``)."""
+    ``devices[r]`` (``jax.lax.psum_scatter(..., tiled=True)``). A rank that
+    holds None adds nothing."""
     _check(per_rank, mesh, axis)
     home = devices[0]
+    live = [t for t in per_rank if t is not None]
     with trace().quiet():
-        total = per_rank[0].to(home)
-        for t in per_rank[1:]:
+        total = live[0].to(home)
+        for t in live[1:]:
             total = total + t.to(home)
         out = [b.to(d) for b, d in zip(_blocks(total, len(per_rank), dim), devices)]
-    trace().deliver(out, per_rank, mesh, axis, scattered=True)
+    trace().deliver(out, live, mesh, axis, scattered=True)
     if record:
         mesh.record("reduce-scatter", _nbytes(out[0]))
     return out

@@ -14,7 +14,10 @@ parameters placed by ``param_shardings``) computes per rank with a
   and row blocks of the down projections; a row-parallel product ends in a
   ``psum`` over ``model`` (``row_end``) or, with sequence parallelism, a
   reduce-scatter over the sequence, whose residual stream an all-gather
-  joins again before the next column-parallel product (``seq_full``);
+  joins again before the next column-parallel product (``seq_full``); the
+  Mamba-2 and mLSTM blocks split by head (``head_range``: a rank owns
+  contiguous heads and multiplies only by the columns they read, those in
+  a neighbour's block moved by ``take``), the sLSTM by batch row;
 - FSDP (``mode="fsdp"``): each data rank gathers a layer's weights whole
   before it uses them (recorded all-gathers) and computes as one device.
 
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -375,6 +379,265 @@ class Vocab:
 
 
 # ---- tensor-parallel attention -------------------------------------------
+
+
+def head_range(H: int, n: int, m: int) -> tuple[int, int]:
+    """[first, stop) of the heads model rank ``m`` owns of ``H`` over ``n``
+    ranks: a contiguous ceil(H / n) each, so the ranks past the last head
+    own none (xlstm's 4 mLSTM heads over 16 model ranks: ranks 4-15)."""
+    c = -(-H // n)
+    first = min(m * c, H)
+    return first, min(first + c, H)
+
+
+def block_ranges(N: int, n: int) -> list[list[tuple[int, int]]]:
+    """Per rank, the [lo, hi) of a dim of ``N`` that its block holds when
+    ``NamedSharding`` splits the dim over ``n`` ranks (ceil-sized blocks,
+    the padding cut; none past the end)."""
+    b = -(-N // n)
+    return [[(r * b, min((r + 1) * b, N))] if r * b < N else [] for r in range(n)]
+
+
+def _holder(have: list, at: int, prefer: int) -> tuple[int, int, int]:
+    """(rank, offset in its part, end of its range) of the rank holding
+    index ``at`` of the dim: ``prefer`` when it does, else the first."""
+    for r in [prefer] + [r for r in range(len(have)) if r != prefer]:
+        off = 0
+        for lo, hi in have[r]:
+            if lo <= at < hi:
+                return r, off + at - lo, hi
+            off += hi - lo
+    raise IndexError(f"no rank holds index {at}")
+
+
+def take(ctx: ShardCtx, parts: list, d: int, dim: int, have: list, want: list) -> list:
+    """Model rank m's ranges ``want[m]`` (a list of [lo, hi) of one dim, in
+    that order) of a tensor whose ranks hold the ranges ``have[r]`` of it
+    (``parts[r]``, their ranges joined along ``dim``): per rank the pieces
+    joined on its device, None where it wants nothing. A piece comes from
+    the rank's own part where it holds it, else from the first rank that
+    does: the columns a rank's heads need from a neighbour's block, of a
+    weight or of a product. One recorded op when any piece moves: an
+    all-gather (the whole result's bytes) when every rank that wants
+    anything wants the same, else a collective-permute (the most bytes one
+    rank receives)."""
+    outs, moved = [], []
+    with C.trace().quiet():
+        for m, ranges in enumerate(want):
+            if not ranges:
+                outs.append(None)
+                moved.append(0)
+                continue
+            dev, pieces, got = ctx.dev(d, m), [], 0
+            for lo, hi in ranges:
+                at = lo
+                while at < hi:
+                    r, off, end = _holder(have, at, m)
+                    end = min(end, hi)
+                    t = parts[r].narrow(dim, off, end - at)
+                    if r != m:
+                        got += t.numel() * t.element_size()
+                    pieces.append(t.to(dev))
+                    at = end
+            outs.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim))
+            moved.append(got)
+    if d == 0 and any(moved):
+        wanted = [tuple(w) for w in want if w]
+        if len(set(wanted)) == 1:
+            first = next(o for o in outs if o is not None)
+            ctx.mesh.record("all-gather", first.numel() * first.element_size())
+        else:
+            ctx.mesh.record("collective-permute", max(moved))
+    return [None if o is None else C.trace().rank(o, d=d, m=m) for m, o in enumerate(outs)]
+
+
+def _foreign(have: list, want: list) -> list[int]:
+    """Per rank, how many indices of ``want[m]`` its own ``have[m]`` lacks."""
+    out = []
+    for mine, ranges in zip(have, want):
+        n = sum(hi - lo for lo, hi in ranges)
+        for lo, hi in ranges:
+            for a, b in mine:
+                n -= max(0, min(hi, b) - max(lo, a))
+        out.append(n)
+    return out
+
+
+def col_product(ctx: ShardCtx, x: torch.Tensor, blocks: list, N: int, d: int,
+                want: list) -> list:
+    """Per model rank m, ``x @ W[:, want[m]]`` (None where it wants
+    nothing) for a column-split weight W of ``N`` columns whose per-rank
+    blocks are ``blocks``; ``x`` (..., K) is data rank d's, which every
+    model rank holds. Columns outside a rank's own block reach it one of two
+    ways, both what GSPMD's reshard does: as products (every rank multiplies
+    by its own block, then ``take`` moves the columns: tokens x columns)
+    or as weights (``take`` moves the weight's columns first: K x columns),
+    whichever moves fewer bytes to a rank (a decode step's few tokens move
+    products, a long sequence moves weights)."""
+    n = len(blocks)
+    have = block_ranges(N, n)
+    extra = max(_foreign(have, want))
+    tokens = x.numel() // x.shape[-1]
+    by_weights = extra * x.shape[-1] < extra * tokens
+    ws = [w.to(x.dtype) for w in blocks]
+    if by_weights:
+        cols = take(ctx, ws, d, -1, have, want)
+        return [None if w is None else x.to(w.device) @ w for w in cols]
+    needed = {r for r in range(n) if any(_foreign([have[r]], [ranges])[0] <
+                                         sum(hi - lo for lo, hi in ranges) for ranges in want)}
+    prods = [x.to(ws[r].device) @ ws[r][..., :have[r][0][1] - have[r][0][0]] if r in needed
+             else None for r in range(n)]
+    return take(ctx, prods, d, -1, [h if r in needed else [] for r, h in enumerate(have)],
+                want)
+
+
+def col_gather(ctx: ShardCtx, x: torch.Tensor, blocks: list, N: int, d: int, lo: int,
+               hi: int) -> torch.Tensor:
+    """``x @ W[:, lo:hi]`` on every model rank of data rank d (a replicated
+    activation: one tensor on its device) for a column-split weight W of
+    ``N`` columns: one recorded all-gather over ``model``, of the blocks'
+    products (tokens x (hi - lo)) or of the weight's columns (K x (hi -
+    lo), then one product every rank computes), whichever is fewer bytes."""
+    n = len(blocks)
+    ws = [w.to(x.dtype) for w in blocks]
+    if n == 1:
+        return x @ ws[0][..., lo:hi]
+    have = block_ranges(N, n)
+    tokens = x.numel() // x.shape[-1]
+    by_weights = x.shape[-1] < tokens
+
+    def piece(r):
+        a, b = (max(lo, have[r][0][0]), min(hi, have[r][0][1])) if have[r] else (0, 0)
+        if b <= a:
+            shape = ws[r].shape[:-1] if by_weights else x.shape[:-1]
+            return torch.empty((*shape, 0), dtype=x.dtype, device=ws[r].device)
+        w = ws[r][..., a - have[r][0][0]:b - have[r][0][0]]
+        return w if by_weights else x.to(w.device) @ w
+    out = C.all_gather_dim([piece(r) for r in range(n)], ctx.mesh, "model", -1, ctx.dev(d),
+                           record=d == 0)
+    return x @ out if by_weights else out
+
+
+def row_product(ctx: ShardCtx, ys: list, have: list, blocks: list, N: int, d: int,
+                split: bool):
+    """``y @ W`` for a row-split weight W of ``N`` rows (per-rank blocks
+    ``blocks``) and an activation y whose model ranks hold its columns
+    ``have[m]`` (``ys[m]``, None where a rank holds none), ending in
+    ``row_end``. Where a rank's columns are not its block's rows, either
+    its weight rows move to it, or the activation's columns move to the
+    rows' owners (``take``): whichever moves fewer bytes to a rank."""
+    n = len(blocks)
+    rows = block_ranges(N, n)
+    y0 = next(y for y in ys if y is not None)
+    tokens = y0.numel() // y0.shape[-1]
+    ws = [w.to(y0.dtype) for w in blocks]
+    if max(_foreign(rows, have)) * ws[0].shape[-1] <= max(_foreign(have, rows)) * tokens:
+        mine = take(ctx, ws, d, 0, rows, have)
+        parts = [None if y is None else y @ w for y, w in zip(ys, mine)]
+    else:
+        yb = take(ctx, ys, d, -1, have, rows)
+        parts = [None if y is None else y @ w[:y.shape[-1]] for y, w in zip(yb, ws)]
+    return ctx.row_end(parts, d, split)
+
+
+def split_rms_norm(ctx: ShardCtx, ys: list, scales: list, N: int, d: int,
+                   eps: float = 1e-6) -> list:
+    """``models.common.rms_norm`` over a dim of ``N`` whose model ranks hold
+    pieces ``ys[m]`` (None: none) with their slices ``scales[m]`` of the
+    scale: the mean square from a psum of each rank's sums of squares,
+    shaped (..., 1)."""
+    sq = [None if y is None else (y.float() * y.float()).sum(-1, keepdim=True) for y in ys]
+    live = [t for t in sq if t is not None]
+    total = live[0] if len(live) == 1 else C.psum(sq, ctx.mesh, "model", ctx.dev(d),
+                                                  record=d == 0)
+    var = total / N
+    return [None if y is None else
+            (y.float() * torch.rsqrt(var.to(y.device) + eps) * (1.0 + s.float())).to(y.dtype)
+            for y, s in zip(ys, scales)]
+
+
+class Batch(NamedTuple):
+    """What a data rank's model ranks compute next, for ``each_grouped``:
+    ``fn(*args[m])`` for each model rank m in ``args``, joined and cut as
+    ``grouped`` says."""
+    args: dict
+    cat: tuple
+    rows: tuple
+    fn: object
+    out: tuple
+    counts: dict
+
+
+def grouped(ctx: ShardCtx, args: dict, cat: tuple, rows: tuple, fn, out: tuple,
+            counts: dict) -> dict:
+    """``fn(*args[(d, m)])`` for each rank (d, m) in ``args``, as the
+    controller runs it: the ranks that share a device (a debug mesh)
+    compute as one batch. Each model rank's data ranks join along dim 0
+    where ``rows`` marks an argument as the data rank's rows (else the
+    first's is taken), then the model ranks along ``cat`` (an entry None:
+    the same for every model rank, the first's taken; a non-tensor passes
+    as it is); the results are cut back along ``out``'s (dim, unit) entries,
+    ``counts[m]`` units a model rank (times its data ranks along dim 0),
+    then along dim 0 into the data ranks' rows. A counting pass keeps rank
+    (0, 0) apart, so its count stays rank 0's. Returns {(d, m): results}."""
+    groups: dict = {}
+    for d, m in args:
+        key = "rank0" if ctx.mirror and (d, m) == (0, 0) else str(ctx.dev(d, m))
+        groups.setdefault(key, []).append((d, m))
+    res = {}
+    for keys in groups.values():
+        ds, ms = sorted({d for d, _ in keys}), sorted({m for _, m in keys})
+        if len(keys) != len(ds) * len(ms):
+            raise ValueError(f"ranks {keys} sharing a device are not a grid")
+
+        def of(m, i):  # argument i of model rank m, its data ranks' rows joined
+            parts = [args[(d, m)][i] for d in (ds if rows[i] else ds[:1])]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        first = args[keys[0]]
+        joined = []
+        for i, dim in enumerate(cat):
+            if not isinstance(first[i], torch.Tensor):
+                joined.append(first[i])
+                continue
+            t = of(ms[0], i) if dim is None or len(ms) == 1 else \
+                torch.cat([of(m, i) for m in ms], dim)
+            joined.append(C.trace().rank(t, d=ds[0], m=ms[0]))
+        outs = fn(*joined)
+        for o, (dim, unit) in zip(outs, out):
+            by_m = torch.split(o, [counts[m] * unit * (len(ds) if dim == 0 else 1)
+                                   for m in ms], dim)
+            for m, part in zip(ms, by_m):
+                for d, t in zip(ds, part.chunk(len(ds))):
+                    res.setdefault((d, m), []).append(C.trace().rank(t, d=d, m=m))
+    return {key: tuple(v) for key, v in res.items()}
+
+
+def each_grouped(ctx: ShardCtx, run) -> list:
+    """``ctx.each(run)`` for a generator function ``run(d)``: each data
+    rank's generator runs to its next yield, a ``Batch`` of its model
+    ranks' calls; the calls of every (data, model) rank are computed
+    together (``grouped``) and each generator gets {m: results} back,
+    until they return (what ``each`` returns). A debug mesh then runs one
+    batched call where its ranks would run one each."""
+    ds = [0] if ctx.mirror else list(range(ctx.n_dp))
+    gens, sent, results = {d: run(d) for d in ds}, dict.fromkeys(ds), {}
+    while gens:
+        asks = {}
+        for d in list(gens):
+            try:
+                asks[d] = gens[d].send(sent[d])
+            except StopIteration as stop:
+                results[d] = stop.value
+                del gens[d]
+        if asks and gens.keys() != asks.keys():
+            raise RuntimeError("data ranks out of step")
+        if asks:
+            b = next(iter(asks.values()))
+            done = grouped(ctx, {(d, m): a for d, ask in asks.items() for m, a in
+                                 ask.args.items()}, b.cat, b.rows, b.fn, b.out, b.counts)
+            sent = {d: {m: done[(d, m)] for m in ask.args} for d, ask in asks.items()}
+    out = [results[d] for d in ds]
+    return out + [_alias(out[0], d) for d in range(len(ds), ctx.n_dp)]
 
 
 def kv_heads_for(m: int, n_tp: int, Hq: int, Hkv: int) -> tuple[int, int]:

@@ -24,16 +24,19 @@ recomputed in the backward (``torch.utils.checkpoint``, the reference's
 the flash kernel both ways (``kernels/flash_attention``: FlashAttentionFn).
 Under ``use_mesh`` ``train_loss`` runs the sharded path at the end of this
 module (``distributed.tensor_parallel``): the same function computed per
-rank of the mesh, each rank's attention in the flash kernel on its heads.
+rank of the mesh, each rank's attention in the flash kernel on its heads,
+its Mamba-2 and mLSTM blocks on its heads and its sLSTM on its batch rows.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed import kv_cache as KV
 from repro_torch.distributed.sharding import (Act, Blocks, cache_shardings, current_mesh,
@@ -1002,8 +1005,8 @@ def _run_layers_tp(cfg: ArchConfig, stacked, x: Act, positions, *, causal=True,
 
 def _gathered_block(x: Act, p, fn, states=None):
     """A block whose weights each data rank gathers whole first (recorded),
-    then runs as one device: the Mamba-2 and xLSTM blocks (their explicit
-    tensor parallelism is not written yet) and every block in fsdp mode.
+    then runs as one device: every block in fsdp mode, the reference's
+    FSDP semantics (a layer's weights all-gathered before its use).
     ``states[d]``: data rank d's recurrent state, ``fn``'s third argument
     (serving)."""
     ctx = TP.current()
@@ -1015,44 +1018,181 @@ def _gathered_block(x: Act, p, fn, states=None):
     return Act(ctx.each(run))
 
 
+def _states_tp(ctx, state, axis: int):
+    """Per data rank, (each model rank's replica of its rows of a placed
+    stacked recurrent state, the model ranks whose replicas are distinct
+    tensors), and a function that writes back what is not a view. The
+    state is placed batch only (``cache_shardings``), so each model rank's
+    own block holds its data rank's rows whole: views of it. Where another
+    axis is split instead (a batch the data axes do not divide, as
+    ``shard_seq`` serving's batch of 1), the data rank's rows are read once
+    (``_states``) and its model ranks share that tensor. (None, a no-op)
+    without a state."""
+    if state is None:
+        return None, lambda: None
+
+    def view(d, m):
+        coord = np.unravel_index(d * ctx.n_model + m, state[0].grid.shape)
+        r0, r1 = ctx.rows(state[0].shape[axis], d)
+        leaves = []
+        for b in state:
+            box = b.box(coord)
+            if any(k != axis and (lo, hi) != (0, b.shape[k]) for k, (lo, hi) in enumerate(box)) \
+                    or not box[axis][0] <= r0 <= r1 <= box[axis][1]:
+                return None
+            leaves.append(b.grid[coord].narrow(axis, r0 - box[axis][0], r1 - r0))
+        return type(state)(*leaves)
+    views = ctx.each(lambda d: [view(d, m) for m in range(ctx.n_model)])
+    if any(v is None for per_d in views for v in per_d):
+        read, back = _states(ctx, state, axis)
+        return [([r] * ctx.n_model, [0]) for r in read], back
+    out = []
+    for d, reps in enumerate(views):
+        coords = [np.unravel_index(d * ctx.n_model + m, state[0].grid.shape)
+                  for m in range(ctx.n_model)]
+        blocks = [id(state[0].grid[c]) for c in coords]
+        out.append((reps, [m for m in range(ctx.n_model) if blocks.index(blocks[m]) == m]))
+    return out, lambda: None
+
+
+def _write_state(ctx, d: int, reps: list, owners: list, items: list) -> None:
+    """Writes each model rank's new state pieces ``items`` ((field, index,
+    value) triples) into its data rank's replicas of the layer's state
+    ``reps``: into its own, and, to join the heads' (or rows') pieces, into
+    every other distinct one. A debug mesh shares one tensor; distinct
+    cards all-gather it (recorded: the layer's whole state, one op)."""
+    with C.trace().quiet():
+        for field, index, value in items:
+            for m in owners:
+                dst = reps[m][field][index]
+                dst.copy_(value.to(dst.device))
+    if d == 0 and ctx.n_tp > 1:
+        ctx.mesh.record("all-gather", sum(t.numel() * t.element_size() for t in reps[0]))
+
+
+def _mamba_tp(x: Act, p, cfg: ArchConfig, states=None, li: int = 0):
+    """A Mamba-2 layer over the mesh in tp mode: ``ssm.mamba2_tp`` per data
+    rank, its heads split over the model ranks, every rank's scan batched
+    where ranks share a device (``tensor_parallel.each_grouped``); serving
+    reads and writes layer ``li`` of ``states`` (``_states_tp``)."""
+    ctx = TP.current()
+    P, di, N = cfg.ssm_headdim, cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+
+    def run(d):
+        xd, pv = x.parts[d], ctx.view(p, d)
+        xf = rms_norm(ctx.seq_full(xd, d), pv["ln"][0], cfg.norm_eps)
+        reps = None if states is None else [_layer(r, li) for r in states[d][0]]
+        h, news = yield from SSM.mamba2_tp(ctx, pv["m"], xf, d, N, cfg.ssm_expand, P,
+                                           cache=reps, split=isinstance(xd, tuple))
+        if reps is not None:
+            items = []
+            for m, new in enumerate(news):
+                if new is None:
+                    continue
+                a, b = TP.head_range(di // P, ctx.n_tp, m)
+                c = (b - a) * P
+                items += [(0, (slice(None), slice(a, b)), new.h),
+                          (1, (..., slice(a * P, b * P)), new.conv[..., :c])]
+                if m == 0:  # B / C's channels: every rank computes them alike
+                    items.append((1, (..., slice(di, di + 2 * N)), new.conv[..., c:]))
+            _write_state(ctx, d, reps, states[d][1], items)
+        return ctx.add(xd, h)
+    return Act(TP.each_grouped(ctx, run))
+
+
+def _xlstm_super_tp(x: Act, p, cfg: ArchConfig, states=None, i: int = 0):
+    """An xLSTM super-block over the mesh in tp mode: each mLSTM layer split
+    by head (``xlstm.mlstm_tp``), then the sLSTM split by batch rows
+    (``xlstm.slstm_tp``); serving reads and writes super-block ``i`` of
+    ``states`` (the mLSTM's and the sLSTM's ``_states_tp``)."""
+    ctx = TP.current()
+    H = cfg.n_heads
+
+    def run(d):
+        xd = x.parts[d]
+        for j, pp in enumerate(_unstack_placed(p["mlstm"])):
+            pv = ctx.view(pp, d)
+            xf = rms_norm(ctx.seq_full(xd, d), pv["ln"][0], cfg.norm_eps)
+            reps = None if states is None else \
+                [_layer(_layer(r, i), j) for r in states[0][d][0]]
+            h, news = yield from XL.mlstm_tp(ctx, pv["x"], xf, d, H, cache=reps,
+                                             split=isinstance(xd, tuple))
+            if reps is not None:
+                _write_state(ctx, d, reps, states[0][d][1], [
+                    (f, (slice(None), slice(*TP.head_range(H, ctx.n_tp, m))), t)
+                    for m, new in enumerate(news) if new is not None
+                    for f, t in enumerate(new)])
+            xd = ctx.add(xd, h)
+        pv = ctx.view(p["slstm"], d)
+        xf = rms_norm(ctx.seq_full(xd, d), pv["ln"][0], cfg.norm_eps)
+        reps = None if states is None else [_layer(r, i) for r in states[1][d][0]]
+        h, news = yield from XL.slstm_tp(ctx, pv["x"], xf, d, cache=reps,
+                                         split=isinstance(xd, tuple))
+        if reps is not None:
+            rows = TP.block_ranges(xf.shape[0], ctx.n_tp)
+            _write_state(ctx, d, reps, states[1][d][1], [
+                (f, (slice(*rows[m][0]),), t) for m, new in enumerate(news) if new is not None
+                for f, t in enumerate(new)])
+        return ctx.add(xd, h)
+    return Act(TP.each_grouped(ctx, run))
+
+
 def _forward_core_tp(cfg: ArchConfig, params, x: Act, positions, *, cache=None, pos=None):
     """``forward_core`` over the mesh. Serving: ``cache`` is the placed cache
     (a tree of ``Blocks``), written by a prefill (``pos`` None) or written
-    and read by a decode step at ``pos``; the recurrent states are read per
-    data rank (``_states``) and written back at the end."""
+    and read by a decode step at ``pos``. In tp mode the Mamba-2 and xLSTM
+    blocks split by head (``_mamba_tp``, ``_xlstm_super_tp``) and each
+    model rank updates its heads' (or rows') slice of its replica of the
+    recurrent state in place; in fsdp mode they run gathered
+    (``_gathered_block``), the states read per data rank (``_states``) and
+    written back at the end."""
     fam = _family(cfg)
     if fam in ("dense", "moe", "vlm"):
         return _run_layers_tp(cfg, params["layers"], x, positions,
                               kv=None if cache is None else KV.layers(cache), pos=pos)
     ctx = TP.current()
+    tp = ctx.mode == "tp"
+
+    def states_of(key, axis):
+        state = None if cache is None else cache[key]
+        return (_states_tp if tp else _states)(ctx, state, axis)
     aux = 0.0
     if fam == "hybrid":
         G, n = cfg.n_layers // cfg.attn_every, cfg.attn_every
-        states, back = _states(ctx, None if cache is None else cache["ssm"], 1)
+        states, back = states_of("ssm", 1)
         kvs = None if cache is None else KV.layers(cache)
         for g, layers in enumerate(_zamba_groups(cfg, params, _unstack_placed)):
             for j, p in enumerate(layers):
-                if states is None:
-                    fn = functools.partial(_mamba_layer, cfg=cfg, ssm_cache=None, li=0)
+                if tp:
+                    block = functools.partial(_mamba_tp, p=p, cfg=cfg, states=states,
+                                              li=g * n + j)
                 else:
-                    fn = functools.partial(_mamba_state, cfg=cfg, li=g * n + j)
-                x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn,
-                                                      states=states), x)
+                    fn = (functools.partial(_mamba_layer, cfg=cfg, ssm_cache=None, li=0)
+                          if states is None else
+                          functools.partial(_mamba_state, cfg=cfg, li=g * n + j))
+                    block = functools.partial(_gathered_block, p=p, fn=fn, states=states)
+                x = _remat_act(cfg, block, x)
             if g < G:
                 x, a = _block_tp(x, params["shared_attn"], cfg, positions, window=NO_WINDOW,
                                  kv=None if kvs is None else kvs[g], pos=pos)
                 aux = aux + a
         back()
         return x, aux
-    ms, back_m = _states(ctx, None if cache is None else cache["mlstm"], 2)
-    ss, back_s = _states(ctx, None if cache is None else cache["slstm"], 1)
-    for i, p in enumerate(_unstack_placed(params["super"])):  # ssm: xlstm
-        if ms is None:
-            fn, st = functools.partial(_xlstm_super, cfg=cfg, cache_m=None, cache_s=None), None
+    ms, back_m = states_of("mlstm", 2)  # ssm: xlstm
+    ss, back_s = states_of("slstm", 1)
+    for i, p in enumerate(_unstack_placed(params["super"])):
+        if tp:
+            block = functools.partial(_xlstm_super_tp, p=p, cfg=cfg,
+                                      states=None if ms is None else (ms, ss), i=i)
+        elif ms is None:
+            block = functools.partial(_gathered_block, p=p, fn=functools.partial(
+                _xlstm_super, cfg=cfg, cache_m=None, cache_s=None))
         else:
-            fn = functools.partial(_xlstm_state, cfg=cfg)
-            st = [(_layer(m, i), _layer(s_, i)) for m, s_ in zip(ms, ss)]
-        x = _remat_act(cfg, functools.partial(_gathered_block, p=p, fn=fn, states=st), x)
+            block = functools.partial(_gathered_block, p=p,
+                                      fn=functools.partial(_xlstm_state, cfg=cfg),
+                                      states=[(_layer(m, i), _layer(s_, i))
+                                              for m, s_ in zip(ms, ss)])
+        x = _remat_act(cfg, block, x)
     back_m()
     back_s()
     return x, aux

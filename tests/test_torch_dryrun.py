@@ -193,6 +193,61 @@ def test_prefill_count_equals_closed_form_and_reference_memory():
     assert rank0_bytes(logits) + rank0_bytes(cache) + 8 * leaves == ma.output_size_in_bytes
 
 
+@pytest.mark.parametrize("arch,shape", [("xlstm-350m", (2, 8)), ("zamba2-1.2b", (2, 4))],
+                         ids=["xlstm-2x8", "zamba2-2x4"])
+def test_ssm_step_count_gathers_no_whole_weight(arch, shape, monkeypatch):
+    """A ``reduced()`` training step counted on meta with the Mamba-2 /
+    xLSTM blocks split by head: xlstm's 4 mLSTM heads over 8 model ranks
+    (4 of them own none), zamba2 on 4 (its 4 attention q heads do not split
+    over 8). No tensor a collective over ``model`` delivers
+    (``all_gather_dim``, ``tensor_parallel.take``, ``ShardCtx.full``) is a
+    whole split weight of those blocks (ZeRO-1's all-gathers over the data
+    axis return the model blocks of the updated parameters); pieces of
+    columns move (collective-permutes are logged) and the counted FLOPs are
+    rank 0's: the model ranks that share the meta device run one batched
+    scan (``tensor_parallel.grouped``), and the count equals each rank's
+    scan run alone."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.train.optimizer import zero1_shardings
+    from repro_torch.train.step import make_sharded_train_step, sharded_adamw_init
+    cfg = get_arch(arch).reduced()
+    _, mesh = _meta_mesh(shape, ("data", "model"))
+    seen = []
+
+    def spy(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            if fn is not gather or a[2] == "model":
+                seen.extend(t for t in (out if isinstance(out, list) else [out]) if t is not None)
+            return out
+        return run
+    gather = C.all_gather_dim
+    monkeypatch.setattr(C, "all_gather_dim", spy(gather))
+    monkeypatch.setattr(TP, "take", spy(TP.take))
+    full = TP.ShardCtx.full
+    monkeypatch.setattr(TP.ShardCtx, "full", lambda self, leaf, d: spy(full)(self, leaf, d))
+    params_abs = D.abstract_params(cfg)
+    p_sh = param_shardings(params_abs, mesh)
+
+    def count():
+        params = shard_tree(params_abs, p_sh)
+        opt = sharded_adamw_init(params, zero1_shardings(p_sh, params_abs, mesh))
+        batch = {"tokens": torch.empty((4, 64), dtype=torch.int32, device="meta")}
+        return D.count_step(make_sharded_train_step(cfg), (params, opt, batch), mesh,
+                            grad=True)[1]
+    rec = count()
+    batched = TP.grouped
+    monkeypatch.setattr(TP, "grouped", lambda ctx, args, *rest: {
+        k: batched(ctx, {k: a}, *rest)[k] for k, a in args.items()})
+    assert count()["flops"] == rec["flops"]
+    split = ("in_proj", "out_proj", "up_proj", "q", "k", "v", "down_proj", "w_in")
+    whole = {tuple(t.shape[-2:]) for path, t in M._leaves(params_abs)
+             if path[-1] in split and path[0] != "shared_attn"}
+    assert not {tuple(t.shape[-2:]) for t in seen if t.ndim >= 2} & whole
+    assert mesh.log["collective-permute"][0] > 0
+    assert rec["flops"] > 0 and rec["ops"] > 0
+
+
 def test_scan_sweep_equals_reference_but_for_the_capacity(monkeypatch):
     monkeypatch.setattr(RL, "HW", dict(JRL.HW))
     ns = (2048, 8192, 32768, 65536)
