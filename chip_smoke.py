@@ -225,13 +225,29 @@ into ``build/kernels/``), then:
      zamba2's flash launches by route; then the flash kernel at one zamba2
      rank's prefill call and one sequence shard's decode call, held, timed
      beside its plain version and SDPA, and bounded;
-  21. the scan sweep (phase ``scan_sweep``): ``launch.roofline.
+  21. attention's q heads split unevenly over the mesh's model axis (phase
+     ``uneven_tp_path``): qwen2-7b at full width and depth (28 layers, 28 q
+     / 4 kv heads of 128) on ``make_debug_mesh(1, 16)``, the production
+     mesh's 16 model ranks: each rank owns 2 q heads (ranks 14-15 none;
+     ranks 3 and 10 straddle the kv groups of 7), its ``wq`` columns and
+     ``wo`` rows outside its own block moved as weights or products; a
+     prefill of 2 x 2,048 tokens and 16 decode steps over the
+     sequence-split cache against one device's run (sharded_serve_path's
+     tolerance and near-tie rule), a repeat bit-equal; one tp training step
+     with the depth cut to 2 layers (printed as ``scale_cut``), its loss
+     within 1e-2 of one device's, a repeat bit-equal; no whole ``wq`` /
+     ``bq`` / ``wo`` delivered by a collective, the bytes moved against the
+     whole weights', flash launches by route, the collectives by kind,
+     prefill s, decode ms a step, step s and peak memory; then the flash
+     kernel at the straddling rank's prefill call and one shard's decode
+     call, held, timed beside its plain version and SDPA, and bounded;
+  22. the scan sweep (phase ``scan_sweep``): ``launch.roofline.
      streaming_vs_twopass(measure=True)``: the modeled bytes of the streaming
      and two-pass scans and both timed per N (2,048 to 262,144; B 128, d 128,
      k 16, every 64th row dead), bit-equal at each N, the acceptance (at the
      largest N the two-pass score block exceeds the 50 MB L2 and moves >= 2x
      the bytes); the three kernels at the largest N held, timed and bounded;
-  22. the dry-run (phase ``dryrun``): ``launch.dryrun.run_cell`` on the meta
+  23. the dry-run (phase ``dryrun``): ``launch.dryrun.run_cell`` on the meta
      16 x 16 mesh for granite-moe-1b-a400m's decode_32k and prefill_32k, and
      the counting pass over train_path's step on meta, its FLOPs beside the
      analytic ``flops_per_step``.
@@ -3208,9 +3224,15 @@ def leaf_names(tree) -> list[str]:
     return [name for name, _ in _leaf_paths(tree)]
 
 
-def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.double(), want.double()
-    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+def rel_l2(got: torch.Tensor, want: torch.Tensor, chunk: int = 1 << 26) -> float:
+    """||got - want|| / ||want|| in float64, a chunk of elements at a time
+    (a full-width embedding's gradient is 545M elements)."""
+    num = den = 0.0
+    for a, b in zip(got.reshape(-1).split(chunk), want.reshape(-1).split(chunk)):
+        a, b = a.double(), b.double()
+        num += float(torch.sum((a - b) ** 2))
+        den += float(torch.sum(b * b))
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
 
 
 def phase_flash_bwd_grid(dev, errs: dict) -> None:
@@ -3732,20 +3754,38 @@ def phase_sharded_kernel_times(sh: dict, dev, peaks, errs: dict) -> list[dict]:
     """The flash forward (with its lse, as the training step launches it)
     and backward at one tensor-parallel rank's call of sharded_train_path
     (granite on (2, 4): q (4, 4, 2048, 64) in the model's strided layout,
-    kv 2 heads, causal, bf16): held against their plain versions, timed
-    beside them and beside one SDPA call of the same function, bounded."""
-    import torch.nn.functional as F
+    kv 2 heads, causal, bf16): ``train_flash_rows``."""
     from repro_torch.configs.base import get_arch
     from repro_torch.distributed.tensor_parallel import kv_heads_for
+    cfg = get_arch(TRAIN_MODEL)
+    n_dp, n_tp = SHARD_MESH
+    Hkv = kv_heads_for(0, n_tp, cfg.n_heads, cfg.n_kv_heads)[1]
+    steps = sh["steps"]
+    return train_flash_rows(
+        (TRAIN_B // n_dp, cfg.n_heads // n_tp, Hkv, TRAIN_S, cfg.hd), dev, peaks, errs,
+        "tp_shard", "granite sharded training, one tp rank",
+        dict(forward=sh["fwd_launches"], backward=sh["bwd_launches"]),
+        dict(forward=sh["fwd_launches"] // steps, backward=sh["bwd_launches"] // steps))
+
+
+def train_flash_rows(shape: tuple, dev, peaks, errs: dict, name: str, call: str,
+                     launches: dict, per_step: dict, forward: bool = True,
+                     **extra) -> list[dict]:
+    """The flash forward with its lse (as a training step launches it) and
+    backward at one tensor-parallel rank's training call, ``shape`` = (B,
+    q heads, kv heads, S, d): q (B, Hq, S, d) in the model's strided layout
+    over Hkv kv heads, causal, bf16. Held against their plain versions
+    (``check_flash_bwd``: out, lse, dq, dk, dv), timed beside them and
+    beside one SDPA call of the same function, bounded. ``launches`` and
+    ``per_step`` give each row's counts from its path's run; ``forward``
+    False leaves out the forward's row (its out and lse are checked all the
+    same); ``extra`` goes into every row."""
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                             flash_attention_lse)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
     from repro_torch.kernels.parity import check_flash_bwd
-    cfg = get_arch(TRAIN_MODEL)
-    n_dp, n_tp = SHARD_MESH
-    B, S, d = TRAIN_B // n_dp, TRAIN_S, cfg.hd
-    Hq = cfg.n_heads // n_tp
-    Hkv = kv_heads_for(0, n_tp, cfg.n_heads, cfg.n_kv_heads)[1]
+    B, Hq, Hkv, S, d = shape
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def heads(h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
@@ -3754,50 +3794,52 @@ def phase_sharded_kernel_times(sh: dict, dev, peaks, errs: dict) -> list[dict]:
     q, k, v = heads(Hq), heads(Hkv), heads(Hkv)
     dout = torch.randn((B, Hq, S, d), generator=gen, device=dev, dtype=torch.bfloat16)
     res = check_flash_bwd(q, k, v, dout, dict(causal=True, window=0, softcap=0.0),
-                          "flash at the sharded training call")
+                          f"flash at the {call} call")
     errs["flash_attention"] = max(errs["flash_attention"], res["out_max_abs_err"])
     errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], res["max_abs_err"])
     out, lse = flash_attention_lse(q, k, v)
     pairs = kept_pairs(S, S, True, 0)
     fwd_flops = 4.0 * B * Hq * d * pairs
-    steps = sh["steps"]
-    shape = [B, Hq, Hkv, S, S, d]
-    # forward: q, k, v read once; out and lse written once
-    f_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
-    f_ms = cuda_ms(lambda: flash_attention_lse(q, k, v))
-    f_plain = cuda_ms(lambda: attention_lse_ref(q, k, v, causal=True), reps=3, warmup=1)
-    f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                           enable_gqa=True))
-    rows = [table_row("flash_attention[tp_shard]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
-                      "src/repro/kernels/flash_attention/kernel.py:24", sh["fwd_launches"],
-                      res["out_max_abs_err"], f_ms, f_plain, f_lib,
-                      bound(f_bytes, fwd_flops, peaks, rate="bf16"), shape=shape,
-                      call="granite sharded training, one tp rank (causal, bf16, with lse)",
-                      launches_per_step=sh["fwd_launches"] // steps,
-                      lse_max_abs_err=res["lse_max_abs_err"],
-                      library="sdpa (enable_gqa, is_causal)", kept_pairs=pairs,
-                      flops=fwd_flops, bytes=f_bytes)]
-    # backward: q, k, v, out, dout and lse read once; dq, dk, dv written once
+    dims = [B, Hq, Hkv, S, S, d]
+    rows = []
+    if forward:
+        # q, k, v read once; out and lse written once
+        f_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel()
+        f_ms = cuda_ms(lambda: flash_attention_lse(q, k, v))
+        f_plain = cuda_ms(lambda: attention_lse_ref(q, k, v, causal=True), reps=3, warmup=1)
+        f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                               enable_gqa=True))
+        rows.append(table_row(
+            f"flash_attention[{name}]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
+            "src/repro/kernels/flash_attention/kernel.py:24", launches["forward"],
+            res["out_max_abs_err"], f_ms, f_plain, f_lib,
+            bound(f_bytes, fwd_flops, peaks, rate="bf16"), shape=dims,
+            call=f"{call} (causal, bf16, with lse)", launches_per_step=per_step["forward"],
+            lse_max_abs_err=res["lse_max_abs_err"], library="sdpa (enable_gqa, is_causal)",
+            kept_pairs=pairs, flops=fwd_flops, bytes=f_bytes, **extra))
+    # q, k, v, out, dout and lse read once; dq, dk, dv written once
     b_bytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel()
                    + dout.numel()) + 4 * lse.numel()
     b_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
     route = flash_attention_bwd.last_route
-    check(route == "tensor_core", f"the sharded call's backward took {route}")
+    check(route == "tensor_core", f"the {call} call's backward took {route}")
     b_plain = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout), reps=3, warmup=1)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
     b_lib = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout, retain_graph=True))
-    rows.append(table_row("flash_attention_bwd[tp_shard]", "cuda",
-                          "src/repro_torch/csrc/flash_bwd_tc.cu",
-                          "src/repro/models/attention.py:133", sh["bwd_launches"],
-                          res["max_abs_err"], b_ms, b_plain, b_lib,
-                          bound(b_bytes, 2.5 * fwd_flops, peaks, rate="bf16"), shape=shape,
-                          call="granite sharded training, one tp rank (causal, bf16)",
-                          backward_route=route, launches_per_step=sh["bwd_launches"] // steps,
-                          replaces_note="no TPU kernel: the reference differentiates "
-                                        "dense_attention through XLA (jax.vjp)",
-                          library="sdpa backward (enable_gqa, is_causal)",
-                          kept_pairs=pairs, flops_bound=2.5 * fwd_flops, bytes=b_bytes))
+    rows.append(table_row(
+        f"flash_attention_bwd[{name}]", "cuda", "src/repro_torch/csrc/flash_bwd_tc.cu",
+        "src/repro/models/attention.py:133", launches["backward"], res["max_abs_err"], b_ms,
+        b_plain, b_lib, bound(b_bytes, 2.5 * fwd_flops, peaks, rate="bf16"), shape=dims,
+        call=f"{call} (causal, bf16)", backward_route=route,
+        launches_per_step=per_step["backward"],
+        grad_max_abs_errs={n: res[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")},
+        forward_out_max_abs_err=res["out_max_abs_err"],
+        lse_max_abs_err=res["lse_max_abs_err"],
+        replaces_note="no TPU kernel: the reference differentiates "
+                      "dense_attention through XLA (jax.vjp)",
+        library="sdpa backward (enable_gqa, is_causal)",
+        kept_pairs=pairs, flops_bound=2.5 * fwd_flops, bytes=b_bytes, **extra))
     return rows
 
 
@@ -4086,14 +4128,18 @@ def phase_sharded_serve_kernel_times(sv: dict, dev, peaks, errs: dict) -> list[d
 
 
 def mesh_flash_rows(cfg, mesh_shape, S: int, launches: dict, dev, peaks, errs: dict,
-                    names: tuple, label: str) -> list[dict]:
-    """The flash kernel at a mesh-served model's two calls, held against
-    its plain version, timed beside it and one SDPA call of the same
-    function, bounded: one model rank's prefill call (its q and kv heads of
-    one data rank's PROMPTS / n_dp rows, S tokens, causal, bf16, in the
-    model's strided layout) and one sequence shard's decode call with its
-    lse (every q head, gathered, over its (S + DECODE_STEPS) / n_tp slice
-    of the cache)."""
+                    names: tuple, label: str, prefills: tuple | None = None) -> list[dict]:
+    """The flash kernel at a mesh-served model's calls, held against its
+    plain version, timed beside it and one SDPA call of the same function,
+    bounded: a model rank's prefill call (its q and kv heads of one data
+    rank's PROMPTS / n_dp rows, S tokens, causal, bf16, in the model's
+    strided layout) under ``names[0]`` and one sequence shard's decode call
+    with its lse (every q head, gathered, over its (S + DECODE_STEPS) /
+    n_tp slice of the cache) under ``names[1]``. ``prefills`` = ((row name,
+    q heads, kv heads, that call's launches in the path's prefill), ...)
+    gives one prefill row each instead, where the ranks' calls differ; an
+    even split's one call (n_heads / n_tp over n_kv_heads / n_tp) by
+    default."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_lse
     from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_ref
@@ -4102,34 +4148,38 @@ def mesh_flash_rows(cfg, mesh_shape, S: int, launches: dict, dev, peaks, errs: d
     d, b = cfg.hd, PROMPTS // n_dp
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def heads(batch, s, h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
+    def rand_heads(batch, s, h):  # the model's (B, S, H, d) tensor seen as (B, H, S, d)
         return torch.randn((batch, s, h, d), generator=gen, device=dev,
                            dtype=torch.bfloat16).transpose(1, 2)
     rows = []
-    # prefill: one model rank's heads of one data rank's rows
-    Hq, Hkv = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
-    q, k, v = heads(b, S, Hq), heads(b, S, Hkv), heads(b, S, Hkv)
-    out = flash_attention(q, k, v)
-    route = flash_attention.last_route[0]
-    check(route == "tensor_core", f"the {label} sharded prefill call took {route}")
-    err = check_flash(out, attention_ref(q, k, v), f"flash at the {label} sharded prefill call")
-    errs["flash_attention"] = max(errs["flash_attention"], err)
-    pairs = kept_pairs(S, S, True, 0)
-    flops = 4.0 * b * Hq * d * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
-    rows.append(table_row(
-        f"flash_attention[{names[0]}]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
-        "src/repro/kernels/flash_attention/kernel.py:24", launches["prefill"], err,
-        cuda_ms(lambda: flash_attention(q, k, v)),
-        cuda_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1),
-        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                       enable_gqa=True)),
-        bound(nbytes, flops, peaks, rate="bf16"), shape=[b, Hq, Hkv, S, S, d],
-        call=f"{label} sharded prefill, one model rank (causal, bf16)", flash_route=route,
-        library="sdpa (enable_gqa, is_causal)", kept_pairs=pairs, flops=flops, bytes=nbytes))
+    # prefill: a model rank's heads of one data rank's rows
+    for name, Hq, Hkv, n_call in prefills or (
+            (names[0], cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp, None),):
+        q, k, v = rand_heads(b, S, Hq), rand_heads(b, S, Hkv), rand_heads(b, S, Hkv)
+        out = flash_attention(q, k, v)
+        route = flash_attention.last_route[0]
+        check(route == "tensor_core", f"the {label} sharded prefill call took {route}")
+        err = check_flash(out, attention_ref(q, k, v),
+                          f"flash at the {label} sharded prefill call {Hq} q / {Hkv} kv")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        pairs = kept_pairs(S, S, True, 0)
+        flops = 4.0 * b * Hq * d * pairs
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+        more = {} if n_call is None else dict(launches_of_this_call=n_call)
+        rows.append(table_row(
+            f"flash_attention[{name}]", "cuda", "src/repro_torch/csrc/flash_tc.cu",
+            "src/repro/kernels/flash_attention/kernel.py:24", launches["prefill"], err,
+            cuda_ms(lambda: flash_attention(q, k, v)),
+            cuda_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                           enable_gqa=True)),
+            bound(nbytes, flops, peaks, rate="bf16"), shape=[b, Hq, Hkv, S, S, d],
+            call=f"{label} sharded prefill, one model rank (causal, bf16)", flash_route=route,
+            library="sdpa (enable_gqa, is_causal)", kept_pairs=pairs, flops=flops,
+            bytes=nbytes, **more))
     # decode: one sequence shard's slice, every q head (gathered), with lse
     Hq, Hkv, n = cfg.n_heads, cfg.n_kv_heads, (S + DECODE_STEPS) // n_tp
-    q, k, v = heads(b, 1, Hq), heads(b, n, Hkv), heads(b, n, Hkv)
+    q, k, v = rand_heads(b, 1, Hq), rand_heads(b, n, Hkv), rand_heads(b, n, Hkv)
     out, lse = flash_attention_lse(q, k, v, causal=False)
     route = flash_attention.last_route[0]
     check(route == "split_kv", f"the {label} sharded decode call took {route}")
@@ -4195,24 +4245,28 @@ def gathered_block_bytes(cfg) -> int:
 class WeightWatch:
     """Notes the trailing two dims of every tensor a collective over
     ``model`` delivers (``all_gather_dim``, ``tensor_parallel.take``,
-    ``ShardCtx.full``) while it is entered; ``whole(params)`` is what of
-    them equals a whole split weight of the Mamba-2 / xLSTM blocks."""
+    ``ShardCtx.full``; 1-D ones from ``take`` only, a norm's scale having a
+    bias's shape) while it is entered; ``whole(params)`` is what of them
+    equals a whole split weight of the Mamba-2 / xLSTM blocks."""
+
+    def __init__(self):
+        self.shapes = set()
 
     def __enter__(self):
         from repro_torch.distributed import collectives as C
         from repro_torch.distributed import tensor_parallel as TP
-        self.C, self.TP, self.shapes = C, TP, set()
+        self.C, self.TP = C, TP
         self.saved = C.all_gather_dim, TP.take, TP.ShardCtx.full
         gather, take, full = self.saved
 
-        def note(out):
+        def note(out, one_d=False):
             for t in (out if isinstance(out, list) else [out]):
-                if t is not None and t.ndim >= 2:
+                if t is not None and (t.ndim >= 2 or one_d):
                     self.shapes.add(tuple(t.shape[-2:]))
             return out
         C.all_gather_dim = lambda *a, **kw: note(gather(*a, **kw)) if a[2] == "model" \
             else gather(*a, **kw)
-        TP.take = lambda *a, **kw: note(take(*a, **kw))
+        TP.take = lambda *a, **kw: note(take(*a, **kw), one_d=True)
         TP.ShardCtx.full = lambda ctx, leaf, d: note(full(ctx, leaf, d))
         return self
 
@@ -4434,6 +4488,362 @@ def phase_sharded_ssm_kernel_times(ssm: dict, dev, peaks, errs: dict) -> list[di
     return mesh_flash_rows(get_arch("zamba2-1.2b"), SSM_MESH, dict(SSM_RUNS)["zamba2-1.2b"],
                            ssm["launches"], dev, peaks, errs,
                            ("zamba2_tp_prefill", "zamba2_tp_decode"), "zamba2-1.2b")
+
+
+# ---- attention's q heads split unevenly over 16 model ranks of the card -------
+
+UNEVEN_MODEL = "qwen2-7b"  # 28 q / 4 kv heads: 2 a rank on ranks 0-13, none on 14-15
+UNEVEN_MESH = (1, 16)      # (data, model): the production mesh's 16 model ranks
+UNEVEN_S = 2048            # PROMPTS x UNEVEN_S prompt tokens, then DECODE_STEPS greedy steps
+UNEVEN_TRAIN_LAYERS = 2    # the training step's depth, cut from 28 (printed as scale_cut)
+UNEVEN_BUDGET_S = 75.0     # the phase's share of the script's time limit
+UNEVEN_PEAK_LIMIT = 70 * 10 ** 9
+UNEVEN_STRADDLER = 3       # ranks 3 and 10 straddle the kv groups of 7: heads 6-7 read kv 0-1
+# the tp training step's gnorm against one device's (bf16 gradients): read
+# 3.4e-4 off on an NVIDIA H100 80GB HBM3 at 700 W (the psums re-round bf16
+# partial sums); about 9x room
+UNEVEN_GNORM_RTOL = 3e-3
+
+
+class QMoveWatch(WeightWatch):
+    """``WeightWatch``, and the bytes data rank 0's attention layers moved
+    between model ranks as ``wq`` / ``bq`` columns and ``wo`` rows or as
+    the products that stand in for them (the ``Mesh.log`` records of
+    ``models.model._q_tp`` and ``_wo_tp``, ``wo``'s psum left out);
+    ``whole_q`` is what of the noted shapes is a whole ``wq`` / ``bq`` /
+    ``wo``."""
+
+    MOVES = ("collective-permute", "all-gather")
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.mesh, self.moved = mesh, {"wq": 0, "wo": 0}
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        super().__enter__()
+        self.M, self.saved_q = M, (M._q_tp, M._wo_tp)
+
+        def counted(key, fn):
+            def run(*a, **kw):
+                before = {k: self.mesh.log.get(k, (0, 0))[1] for k in self.MOVES}
+                out = fn(*a, **kw)
+                self.moved[key] += sum(self.mesh.log.get(k, (0, 0))[1] - before[k]
+                                       for k in self.MOVES)
+                return out
+            return run
+        M._q_tp, M._wo_tp = counted("wq", M._q_tp), counted("wo", M._wo_tp)
+        return self
+
+    def __exit__(self, *exc):
+        self.M._q_tp, self.M._wo_tp = self.saved_q
+        return super().__exit__(*exc)
+
+    def take_moved(self) -> dict:
+        out, self.moved = self.moved, {"wq": 0, "wo": 0}
+        return out
+
+    def whole_q(self, cfg) -> list:
+        cols = cfg.n_heads * cfg.hd
+        return sorted(self.shapes & {(cfg.d_model, cols), (cols, cfg.d_model), (cols,)})
+
+
+def phase_uneven_tp_path(dev, peaks) -> dict:
+    """qwen2-7b at full width and depth (28 layers, 28 q / 4 kv heads of
+    128, random bf16 weights from a seed) served on ``make_debug_mesh(1,
+    16)`` of the card, the production mesh's 16 model ranks, through
+    ``make_prefill_step`` / ``make_serve_step`` under ``use_mesh``: each
+    rank owns ``head_range``'s 2 q heads (ranks 14-15 none; ranks 3 and 10
+    straddle the kv groups of 7), its ``wq`` columns and ``wo`` rows outside
+    its own block of 224 moved as weights or as products (whichever is fewer
+    bytes), attention once per ``attn_calls`` entry. A prefill of PROMPTS x
+    UNEVEN_S tokens and DECODE_STEPS greedy decode steps over the
+    sequence-split cache against one device's run on the card
+    (sharded_serve_path's tolerance and near-tie rule), a repeat of the
+    prefill and first step bit-equal; one tp training step (bf16 grads,
+    remat) at 2 x UNEVEN_S with the depth cut to UNEVEN_TRAIN_LAYERS, a
+    repeat bit-equal, its loss within SHARD_LOSS_RTOL and its gnorm within
+    UNEVEN_GNORM_RTOL of one device's, and every gradient of the sharded
+    forward and backward against one device's: in bf16 on the step's
+    routes to TRAIN_GRAD_REL_L2, in float32 to SHARD_F32_GRAD_REL_L2; no
+    collective delivers a whole ``wq`` / ``bq`` / ``wo``; flash launches by
+    route, collectives by kind, the ``wq`` / ``wo`` bytes moved against the
+    whole weights', prefill s, decode ms a step, step s and peak memory."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, use_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_bwd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.step import (cast_tree, full_grads, loss_and_grads,
+                                        make_prefill_step, make_serve_step,
+                                        make_sharded_train_step, sharded_adamw_init,
+                                        sharded_loss_and_grads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left < 1 << 30, f"{left} bytes still allocated before the uneven head split")
+    t_phase = time.perf_counter()
+    cfg = get_arch(UNEVEN_MODEL)
+    B, S, n = PROMPTS, UNEVEN_S, DECODE_STEPS
+    n_dp, n_tp = UNEVEN_MESH
+    Hq, Hkv, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    heads = [TP.head_range(Hq, n_tp, m) for m in range(n_tp)]
+    calls = sum(len(TP.attn_calls(m, n_tp, Hq, Hkv)) for m in range(n_tp))
+    check(Hq % n_tp != 0 and heads[-1][1] == heads[-1][0], f"{cfg.name}'s heads {heads}")
+    check(len(TP.q_runs(UNEVEN_STRADDLER, n_tp, Hq, Hkv)) == 2,
+          f"rank {UNEVEN_STRADDLER} does not straddle a kv group")
+    L = S + n
+    check(L % n_tp == 0, f"cache of {L} does not split over {n_tp} model ranks")
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    batch = family_batch(cfg, B, S, seed=0, device=dev)
+    prompt = prompt_of(batch, S)
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    with torch.no_grad():
+        want, cache = prefill_step(params, prompt)
+        cache = M.grow_cache(cache, L)
+        wants, toks = [want], [want.argmax(-1)]
+        for i in range(n):
+            logits, cache = serve_step(params, cache, toks[-1], S + i)
+            wants.append(logits)
+            toks.append(logits.argmax(-1))
+    del cache
+    mesh = make_debug_mesh(*UNEVEN_MESH)
+    psh = param_shardings(params, mesh)
+    placed = shard_tree(params, psh)
+    watch = QMoveWatch(mesh)
+
+    def mesh_run(steps: int) -> dict:
+        out = dict(logits=[], step_ms=[])
+        with use_mesh(mesh), torch.no_grad(), watch:
+            reset_launch_counts()
+            mesh.log.clear()
+            watch.take_moved()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, c = prefill_step(placed, prompt)
+            torch.cuda.synchronize()
+            out.update(prefill_s=time.perf_counter() - t0, prefill_collectives=log_of(mesh),
+                       prefill_launches=launch_counts()["flash_attention"],
+                       prefill_routes=dict(flash_attention.route_launches),
+                       prefill_moved=watch.take_moved())
+            out["spec_k"] = [str(e) for e in c["k"].spec]
+            c = M.grow_cache(c, L)
+            out["logits"].append(got)
+            reset_launch_counts()
+            mesh.log.clear()
+            torch.cuda.synchronize()
+            t_win = time.perf_counter()
+            for i in range(steps):
+                t0 = time.perf_counter()
+                got, c = serve_step(placed, c, toks[i], S + i)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["logits"].append(got)
+            out.update(decode_window_ms=(time.perf_counter() - t_win) * 1e3,
+                       decode_collectives=log_of(mesh),
+                       decode_launches=launch_counts()["flash_attention"],
+                       decode_routes=dict(flash_attention.route_launches),
+                       decode_moved=watch.take_moved())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    run = mesh_run(n)
+    serve_peak = torch.cuda.max_memory_allocated()
+    agree = [same_logits(g, w, f"{cfg.name} on {n_tp} model ranks, "
+                         f"{'prefill' if i == 0 else f'step {i - 1}'}", near_tie=True)
+             for i, (g, w) in enumerate(zip(run["logits"], wants))]
+    check(run["spec_k"][2] == "model", f"the prefill cache's k is placed {run['spec_k']}")
+    layers = cfg.n_layers
+    check(run["prefill_routes"]["tensor_core"] == layers * n_dp * calls,
+          f"prefill flash routes {run['prefill_routes']} ({calls} calls a layer)")
+    check(run["decode_routes"]["split_kv"] == n * layers * n_dp * n_tp,
+          f"decode flash routes {run['decode_routes']} (one split-KV launch a shard)")
+    again = mesh_run(1)
+    check(all(torch.equal(a, b) for a, b in zip(again["logits"], run["logits"])),
+          f"{cfg.name}: a repeat of the prefill and first step on {n_tp} ranks is not "
+          f"bit-equal")
+    del again, wants
+    # what gathering them whole would move a layer: each rank the whole wq and
+    # bq (the all-gather's result) and the whole wo
+    whole_bytes = layers * 2 * (2 * D * Hq * hd + Hq * hd)
+    check(run["prefill_moved"]["wq"] + run["prefill_moved"]["wo"] < whole_bytes,
+          f"the prefill moved {run['prefill_moved']} bytes of wq / wo, whole: {whole_bytes}")
+
+    # one tp training step at 2 x S, the depth cut, from f32 masters
+    tcfg = dataclasses.replace(cfg, n_layers=UNEVEN_TRAIN_LAYERS)
+    del placed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tparams = M.init_params(tcfg, seed=0, dtype=torch.bfloat16, device=dev)
+    tbatch = {"tokens": batch["tokens"][:, :S]}
+    tpsh = param_shardings(tparams, mesh)
+    master = shard_tree(cast_tree(tparams, torch.float32), tpsh)
+    step = make_sharded_train_step(tcfg, bf16_grads=True, peak_lr=TRAIN_PEAK_LR, total_steps=2)
+    st = sharded_adamw_init(master, tpsh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    mesh.log.clear()
+    with watch:
+        watch.take_moved()
+        t0 = time.perf_counter()
+        new_p, new_st, m = step(master, st, tbatch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        train_moved = watch.take_moved()
+    train_log = log_of(mesh)
+    train_launches = dict(launch_counts())
+    train_routes = dict(forward=dict(flash_attention.route_launches),
+                        backward=dict(flash_attention_bwd.route_launches))
+    train_peak = torch.cuda.max_memory_allocated()
+    loss, gnorm = float(m["loss"]), float(m["gnorm"])
+    again_p, _, again_m = step(master, st, tbatch)
+    check(float(again_m["loss"]) == loss and float(again_m["gnorm"]) == gnorm,
+          f"{cfg.name}: a repeat of the tp training step gave another loss or gnorm")
+    for a, b in zip(tree_leaves(new_p), tree_leaves(again_p)):
+        check(all(torch.equal(x, y) for (_, x), (_, y) in zip(a.distinct(), b.distinct())),
+              f"{cfg.name}: a repeat of the tp training step gave other bits")
+    check(train_routes["backward"].get("tensor_core", 0) == UNEVEN_TRAIN_LAYERS * calls,
+          f"training flash backward routes {train_routes['backward']}")
+    whole = watch.whole_q(cfg)
+    check(not whole, f"{cfg.name}: whole wq / bq / wo delivered by a collective: {whole}")
+    del st, new_p, new_st, again_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the step against one device's step of the same function (the step's
+    # bf16 casts of its masters are tparams' bits): its loss and gnorm, and
+    # every gradient of the sharded forward and backward (the uneven runs'
+    # flash calls, k / v sliced per call) against the unsharded ones, in
+    # bf16 on the step's routes (tensor-core flash) and in float32 (the
+    # fp32 routes, where the two compute one function)
+    torch.cuda.reset_peak_memory_stats()
+    names = leaf_names(tparams)
+
+    def grads(sharded: bool, bf16: bool):
+        if sharded:
+            l, leaf_tree, g = sharded_loss_and_grads(tcfg, master, tbatch, bf16_grads=bf16)
+            return float(l), tree_leaves(full_grads(master, leaf_tree, g))
+        l, g = loss_and_grads(tcfg, tparams if bf16 else cast_tree(tparams, torch.float32),
+                              tbatch, bf16_grads=bf16)
+        return float(l), g
+
+    one_loss, g_one = grads(False, True)
+    one_gnorm = math.sqrt(sum(float(torch.sum(g.float() ** 2)) for g in g_one))
+    _, g_s = grads(True, True)
+    bf16_errs = {n: rel_l2(a, b) for n, a, b in zip(names, g_s, g_one)}
+    del g_one, g_s
+    M.ACT_DTYPE = torch.float32
+    try:
+        s32_loss, g_s = grads(True, False)
+        u32_loss, g_one = grads(False, False)
+    finally:
+        M.ACT_DTYPE = torch.bfloat16
+    f32_errs = {n: rel_l2(a, b) for n, a, b in zip(names, g_s, g_one)}
+    del g_one, g_s
+    grad_peak = torch.cuda.max_memory_allocated()
+    rel = abs(loss - one_loss) / abs(one_loss)
+    gnorm_rel = abs(gnorm - one_gnorm) / one_gnorm
+    f32_loss_rel = abs(s32_loss - u32_loss) / abs(u32_loss)
+    check(math.isfinite(loss) and math.isfinite(gnorm) and rel <= SHARD_LOSS_RTOL,
+          f"{cfg.name}: tp step-0 loss {loss} vs one device's {one_loss}: rel {rel:.3g}")
+    check(gnorm_rel <= UNEVEN_GNORM_RTOL, f"{cfg.name}: tp step-0 gnorm {gnorm} vs one "
+          f"device's {one_gnorm}: rel {gnorm_rel:.3g} > {UNEVEN_GNORM_RTOL}")
+    check(f32_loss_rel <= SHARD_F32_LOSS_RTOL, f"{cfg.name} in float32: tp loss {s32_loss} "
+          f"vs one device's {u32_loss}: rel {f32_loss_rel:.3g}")
+    for leaf in names:
+        check(bf16_errs[leaf] <= TRAIN_GRAD_REL_L2, f"{cfg.name} {leaf} in bf16: tp vs one "
+              f"device's gradient rel L2 {bf16_errs[leaf]:.3g} > {TRAIN_GRAD_REL_L2}")
+        check(f32_errs[leaf] <= SHARD_F32_GRAD_REL_L2, f"{cfg.name} {leaf} in float32: tp vs "
+              f"one device's gradient rel L2 {f32_errs[leaf]:.3g} > {SHARD_F32_GRAD_REL_L2}")
+    peak = max(serve_peak, train_peak, grad_peak)
+    check(peak <= UNEVEN_PEAK_LIMIT, f"{cfg.name} on {n_tp} ranks: peak {peak} bytes")
+    del master, tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields = dict(
+        model=cfg.name, mesh=list(UNEVEN_MESH), layers=layers, d_model=D, heads=Hq,
+        kv_heads=Hkv, head_ranges=[list(h) for h in heads],
+        straddler=dict(rank=UNEVEN_STRADDLER,
+                       runs=TP.q_runs(UNEVEN_STRADDLER, n_tp, Hq, Hkv),
+                       calls=len(TP.attn_calls(UNEVEN_STRADDLER, n_tp, Hq, Hkv))),
+        attention_calls_a_layer=calls, prompts=B, prompt_len=S, cache_len=L,
+        cache_spec_k=run["spec_k"], decode_steps=n, prefill_s=run["prefill_s"],
+        prefill_tokens_per_s=B * S / run["prefill_s"],
+        decode_window_ms=run["decode_window_ms"], decode_ms_per_step=run["decode_window_ms"] / n,
+        decode_ms_per_step_median=statistics.median(run["step_ms"]),
+        prefill_collectives=run["prefill_collectives"],
+        decode_collectives_16_steps=run["decode_collectives"],
+        q_weight_bytes_moved=dict(prefill=run["prefill_moved"],
+                                  decode_step={k: v / n for k, v in run["decode_moved"].items()},
+                                  train_step=train_moved),
+        q_weight_bytes_whole=dict(  # the training forward runs twice under remat
+            prefill=whole_bytes, decode_step=whole_bytes,
+            train_step=(2 if cfg.remat else 1) * UNEVEN_TRAIN_LAYERS * whole_bytes // layers),
+        whole_weights_delivered=whole,
+        prefill_flash_launches=run["prefill_launches"],
+        prefill_flash_routes=run["prefill_routes"],
+        decode_flash_launches=run["decode_launches"], decode_flash_routes=run["decode_routes"],
+        logits_vs_one_device=agree, repeat_bit_equal=True, rtol=LOGIT_RTOL, atol=LOGIT_ATOL,
+        train_layers=UNEVEN_TRAIN_LAYERS, train_step_s=step_s, train_loss=loss,
+        train_gnorm=gnorm, one_device_loss=one_loss, train_rel=rel,
+        one_device_gnorm=one_gnorm, gnorm_rel=gnorm_rel, gnorm_rtol=UNEVEN_GNORM_RTOL,
+        bf16_grad_rel_l2=bf16_errs, bf16_bound=TRAIN_GRAD_REL_L2,
+        f32_grad_rel_l2=f32_errs, f32_bound=SHARD_F32_GRAD_REL_L2,
+        f32_loss_rel=f32_loss_rel, train_step_collectives=train_log,
+        train_flash_launches=train_launches, train_flash_routes=train_routes,
+        max_memory_allocated_bytes=dict(serve=serve_peak, train=train_peak,
+                                        grad_checks=grad_peak),
+        seconds=time.perf_counter() - t_phase, budget_s=UNEVEN_BUDGET_S)
+    emit("scale_cut", what=f"{cfg.name} on {n_tp} model ranks: the training step's layers",
+         layers=UNEVEN_TRAIN_LAYERS, layers_uncut=layers,
+         why="the phase's budget; every layer has the same head layout")
+    emit("uneven_tp_path", **fields)
+    return dict(fields=fields, launches=dict(prefill=run["prefill_launches"],
+                                             decode=run["decode_launches"]),
+                train_launches=train_launches)
+
+
+def phase_uneven_tp_kernel_times(uneven: dict, dev, peaks, errs: dict) -> list[dict]:
+    """The flash kernels at each of uneven_tp_path's call shapes. Prefill
+    (``mesh_flash_rows``): the 2 q heads over 1 kv head that 12 of the 14
+    ranks with heads launch, and the straddling ranks' (3 and 10) 2 q heads
+    over the 2 kv heads they read (group 1: their runs have one length, so
+    one call), q (2, 2, 2048, 128), causal; and one sequence shard's decode
+    call with its lse (q (2, 28, 1, 128): every head, gathered, over its
+    129-position slice of the 2,064 kv positions of 4 heads). Training
+    (``train_flash_rows``, the backward's rows): the same two head shapes
+    at the step's B 2, S 2,048, each backward against ``attention_bwd_ref``
+    and its forward's out and lse against ``attention_lse_ref``. Each row's
+    ``launches`` is the kernel's count in the path's run;
+    ``launches_of_this_call`` is that call's share by the head layout."""
+    from collections import Counter
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed import tensor_parallel as TP
+    cfg = get_arch(UNEVEN_MODEL)
+    n_dp, n_tp = UNEVEN_MESH
+    shapes = Counter((hq.stop - hq.start, hk.stop - hk.start) for m in range(n_tp)
+                     for hq, hk in TP.attn_calls(m, n_tp, cfg.n_heads, cfg.n_kv_heads))
+    check(sorted(shapes.items()) == [((2, 1), 12), ((2, 2), 2)],
+          f"{cfg.name}'s flash calls a layer by (q, kv) heads: {dict(shapes)}")
+    tag = {(2, 1): "uneven_tp", (2, 2): "uneven_tp_straddle"}
+    prefills = tuple((f"{tag[hs]}_prefill", *hs, cfg.n_layers * n_dp * c)
+                     for hs, c in sorted(shapes.items()))
+    rows = mesh_flash_rows(cfg, UNEVEN_MESH, UNEVEN_S, uneven["launches"], dev, peaks, errs,
+                           (None, "uneven_tp_decode"), "qwen2-7b", prefills=prefills)
+    bwd = uneven["train_launches"]["flash_attention_bwd"]
+    for (hq, hk), c in sorted(shapes.items()):
+        n_call = UNEVEN_TRAIN_LAYERS * n_dp * c
+        rows += train_flash_rows(
+            (PROMPTS // n_dp, hq, hk, UNEVEN_S, cfg.hd), dev, peaks, errs, f"{tag[hq, hk]}_train",
+            f"qwen2-7b uneven tp training, {hq} q / {hk} kv heads",
+            dict(backward=bwd), dict(backward=bwd), forward=False,
+            launches_of_this_call=n_call)
+    return rows
 
 
 def phase_scan_sweep(dev, peaks, errs: dict) -> list[dict]:
@@ -4674,6 +5084,9 @@ def main() -> int:
         ssm = phase_sharded_ssm_path(dev)
         rows += phase_sharded_ssm_kernel_times(ssm, dev, peaks, errs)
         del ssm
+        uneven = phase_uneven_tp_path(dev, peaks)
+        rows += phase_uneven_tp_kernel_times(uneven, dev, peaks, errs)
+        del uneven
         rows += phase_scan_sweep(dev, peaks, errs)
         phase_dryrun()
         emit("serve_sweep_dryrun_done", seconds=time.perf_counter() - t_new,

@@ -6,7 +6,9 @@ hd) with its batch over the data axes when they divide it and its SEQUENCE
 over ``model`` (with ``shard_seq``, or a batch the data axes do not divide,
 over every axis): each rank owns a slice of the positions, with every kv
 head. Attention's q heads are split over ``model`` (``models.model.
-_attn_tp``), so the two meet here:
+_attn_tp``: ``head_range``'s ceil(Hq / n) a rank, none past the last, a
+rank's heads straddling kv groups where they fall so), so the two meet
+here:
 
 - a prefill's k / v come out of the column-parallel projections split by
   head; an all-to-all over ``model`` turns each rank's heads of the whole
@@ -20,11 +22,13 @@ _attn_tp``), so the two meet here:
   valid key launches nothing and gives lse -inf, output 0), and the ranks'
   partial results are combined by a ``pmax`` of the lse and ``psum``s of
   the rescaled outputs and of their weights (``attend``). Each model rank
-  then keeps its own q heads' part for ``wo``'s row-parallel product.
+  then keeps its own q heads' part for ``wo``'s row-parallel product (a
+  rank without q heads keeps nothing).
 
 A cache whose sequence is not split (its length does not divide
 ``model``) holds every position on each model rank: each attends over its
-own heads as one device does.
+own heads as one device does, one flash call per uniform GQA group of
+them (``tensor_parallel.per_call``).
 
 All collectives are recorded in ``mesh.log`` once per op of the per-device
 program (the caller passes data rank 0's ``record``).
@@ -38,7 +42,7 @@ import torch
 
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import Blocks, _axes_of, write_box
-from repro_torch.distributed.tensor_parallel import kv_heads_for
+from repro_torch.distributed.tensor_parallel import head_range, kv_heads_for, per_call
 from repro_torch.kernels.common import NEG_INF
 from repro_torch.kernels.flash_attention.kernel import flash_attention_lse
 from repro_torch.models import attention as A
@@ -68,15 +72,17 @@ def layers(cache: dict, k: str = "k", v: str = "v") -> list[LayerKV]:
 def rep_heads(n: int, Hq: int, Hkv: int) -> list[tuple[int, int]]:
     """Per model rank, the [lo, hi) of its kv heads (relative to its first,
     ``kv_heads_for``) that no earlier rank holds: the heads it contributes
-    when the ranks' heads are put together (ranks share a kv head when there
-    are fewer kv heads than ranks)."""
+    when the ranks' heads are put together, each kv head once, from the
+    first rank that holds it (ranks share a kv head when there are fewer kv
+    heads than ranks, or when their q heads straddle a group); (0, 0) for a
+    rank without heads."""
     out, end = [], 0
     for m in range(n):
-        first, cnt = kv_heads_for(m, n, Hq, Hkv) if n > 1 else (0, Hkv)
-        lo = max(first, end)
-        hi = max(lo, first + cnt)
+        first, cnt = kv_heads_for(m, n, Hq, Hkv)
+        lo = min(max(first, end), first + cnt)
+        hi = first + cnt
         out.append((lo - first, hi - first))
-        end = hi
+        end = max(end, hi)
     return out
 
 
@@ -134,7 +140,9 @@ def write(ctx, kv: LayerKV, d: int, ks: list, vs: list, pos: int, heads: tuple,
     """Writes data rank d's new k / v at slots ``pos``.. of ``kv``.
 
     ``ks`` / ``vs``: per compute rank (B_d, S_new, cnt, hd), the rank's kv
-    heads (``kv_heads_for``), roped. A prefill (the whole cache at once, pos
+    heads (``kv_heads_for``; zero-width for a rank without q heads), roped;
+    each kv head is sent once, by the first rank that holds it
+    (``rep_heads``). A prefill (the whole cache at once, pos
     0) into a sequence-split cache goes by an all-to-all over ``model``
     from head shards to sequence slices, each rank writing its slice; any
     other write all-gathers the heads over ``model`` first (a decode
@@ -185,9 +193,14 @@ def write(ctx, kv: LayerKV, d: int, ks: list, vs: list, pos: int, heads: tuple,
 def attend(ctx, kv: LayerKV, d: int, qs: list, *, kv_len: int, causal: bool, window: int,
            softcap: float, heads: tuple) -> list:
     """Data rank d's attention of one new position per row over ``kv``:
-    per compute rank, its q heads' output (B_d, 1, hl, hd) in q's dtype.
+    per compute rank, its q heads' output (B_d, 1, heads, hd) in q's dtype
+    (its ``head_range``; None for a rank without heads).
 
-    ``qs``: per compute rank (B_d, 1, hl, hd), roped. The keys are the
+    ``qs``: per compute rank (B_d, 1, heads, hd), roped, or None. The q
+    heads are all-gathered by head (a rank without heads sends nothing) for
+    a sequence-split cache and cut back by ``head_range``; an unsplit cache
+    is read per rank over its kv heads, one flash call per uniform GQA
+    group (``per_call``). The keys are the
     positions [0, kv_len) (a causal step: q sits at kv_len - 1, and
     ``window`` keeps the last ``window`` of them); without ``causal`` every
     one of them (cross attention)."""
@@ -196,27 +209,33 @@ def attend(ctx, kv: LayerKV, d: int, qs: list, *, kv_len: int, causal: bool, win
     B = kv.k.shape[0]
     r0, r1 = ctx.rows(B, d)
     rec = d == 0
-    dt = qs[0].dtype
+    dt = next(q for q in qs if q is not None).dtype
     scales = kv.k_scale is not None
     seq = _seq_entry(kv.k)
     lo_valid = max(0, kv_len - window) if causal else 0
     if seq is None:  # each model rank holds every position: its own heads, as one device
+        names = ("k", "v") + (("k_scale", "v_scale") if scales else ())
+
+        def one(q, k, v, *sc):
+            return A.attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               q_offset=kv_len - 1 if causal else 0, kv_len=kv_len,
+                               **dict(zip(names[2:], sc))).to(dt)
         out = []
         for m, q in enumerate(qs):
+            if q is None:  # a rank without q heads attends nothing
+                out.append(None)
+                continue
             coord = _rank_coord(ctx, d, m)
-            first, cnt = kv_heads_for(m, n, Hq, Hkv) if n > 1 else (0, Hkv)
-            hs = slice(first, first + cnt)
-            k = _local(kv.k, coord, r0, r1, 0, kv.k.shape[1])[:, :, hs]
-            v = _local(kv.v, coord, r0, r1, 0, kv.k.shape[1])[:, :, hs]
-            kw = {}
-            if scales:
-                kw = {name: _local(getattr(kv, name), coord, r0, r1, 0, kv.k.shape[1])[:, :, hs]
-                      for name in ("k_scale", "v_scale")}
-            out.append(A.attention(q, k, v, causal=causal, window=window, softcap=softcap,
-                                   q_offset=kv_len - 1 if causal else 0, kv_len=kv_len,
-                                   **kw).to(dt))
+            first, cnt = kv_heads_for(m, n, Hq, Hkv)
+            out.append(per_call(one, m, n, Hq, Hkv, q, tuple(
+                _local(getattr(kv, name), coord, r0, r1, 0, kv.k.shape[1])
+                [:, :, first:first + cnt] for name in names)))
         return out
-    q = qs[0] if n == 1 else C.all_gather_dim(qs, mesh, "model", 2, ctx.dev(d), record=rec)
+    heads = [head_range(Hq, n, m) for m in range(n)]
+    live = next(q for q in qs if q is not None)
+    q = qs[0] if n == 1 else C.all_gather_dim(
+        [live.new_zeros((*live.shape[:2], 0, live.shape[3])) if q is None else q for q in qs],
+        mesh, "model", 2, ctx.dev(d), record=rec)
     b, hd = r1 - r0, q.shape[-1]
     outs, lses = [], []
     for coord, lo, hi in owners(ctx, kv.k, d):
@@ -237,8 +256,8 @@ def attend(ctx, kv: LayerKV, d: int, qs: list, *, kv_len: int, causal: bool, win
         outs.append(o.float())
         lses.append(lse)
     full = combine(mesh, seq, outs, lses, ctx.dev(d), rec).transpose(1, 2).to(dt)
-    hl = Hq // n
-    return [full[:, :, m * hl:(m + 1) * hl].to(ctx.dev(d, m)) for m in range(n)]
+    return [None if hi == lo else full[:, :, lo:hi].to(ctx.dev(d, m)) for m, (lo, hi) in
+            enumerate(heads)]
 
 
 def combine(mesh, axis, outs: list, lses: list, home, record: bool) -> torch.Tensor:

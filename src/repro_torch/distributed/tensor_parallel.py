@@ -9,9 +9,14 @@ parameters placed by ``param_shardings``) computes per rank with a
   axes but ``model``, flattened to ``n_dp`` data ranks, the first axis
   major); each data rank runs its rows;
 - tensor parallelism (``mode="tp"``): the ``n_tp = mesh.shape["model"]``
-  ranks of a data rank hold column blocks of the up projections (whole
-  heads of ``wq`` / ``wk`` / ``wv``, d_ff of the MLP and of every expert)
-  and row blocks of the down projections; a row-parallel product ends in a
+  ranks of a data rank hold column blocks of the up projections (of
+  ``wq`` / ``wk`` / ``wv``, d_ff of the MLP and of every expert) and row
+  blocks of the down projections; attention's q heads split by
+  ``head_range`` (ceil(Hq / n) a rank, none past the last: GSPMD's padded
+  layout), each rank reading the kv heads its q heads read (``kv_heads_for``,
+  straddled groups included) and attending once per uniform group
+  (``attn_calls``), its ``wq`` columns and ``wo`` rows outside its own block
+  moved by ``take``; a row-parallel product ends in a
   ``psum`` over ``model`` (``row_end``) or, with sequence parallelism, a
   reduce-scatter over the sequence, whose residual stream an all-gather
   joins again before the next column-parallel product (``seq_full``); the
@@ -641,13 +646,50 @@ def each_grouped(ctx: ShardCtx, run) -> list:
 
 
 def kv_heads_for(m: int, n_tp: int, Hq: int, Hkv: int) -> tuple[int, int]:
-    """(first, count) of the kv heads the q heads of model rank ``m`` read
-    (whole q heads per rank, GQA groups of Hq / Hkv)."""
-    if Hq % n_tp:
-        raise ValueError(f"{Hq} q heads do not split over {n_tp} model ranks")
-    hl, G = Hq // n_tp, Hq // Hkv
-    first, last = (m * hl) // G, (m * hl + hl - 1) // G
-    count = last - first + 1
-    if count > 1 and (m * hl % G or hl % G):
-        raise ValueError(f"rank {m}'s {hl} q heads straddle kv groups of {G}")
-    return first, count
+    """(first, count) of the kv heads that model rank ``m``'s q heads
+    (``head_range``) read, GQA groups of Hq / Hkv: every group its heads
+    touch, two or more where they straddle groups (qwen2-7b's 28 q heads on
+    8 ranks: rank 1's heads 4-7 read kv heads 0 and 1); (0, 0) for a rank
+    that owns no q head."""
+    a, b = head_range(Hq, n_tp, m)
+    if b == a:
+        return 0, 0
+    G = Hq // Hkv
+    return a // G, (b - 1) // G - a // G + 1
+
+
+def q_runs(m: int, n_tp: int, Hq: int, Hkv: int) -> list[tuple[int, int, int]]:
+    """Model rank ``m``'s q heads cut into runs that each read one kv head:
+    (first q head, stop, kv head) in order, none for a rank without heads
+    (qwen2-7b's 28 / 4 heads on 8 ranks, rank 1: (4, 7, 0), (7, 8, 1))."""
+    a, b = head_range(Hq, n_tp, m)
+    G = Hq // Hkv
+    return [(max(a, j * G), min(b, (j + 1) * G), j) for j in range(a // G, -(-b // G))
+            if b > a]
+
+
+def attn_calls(m: int, n_tp: int, Hq: int, Hkv: int) -> list[tuple[slice, slice]]:
+    """The flash calls of model rank ``m``'s attention: (its q heads, its kv
+    heads), each relative to the rank's first (``head_range``,
+    ``kv_heads_for``), so that every call is a uniform GQA group (q head i
+    of a call reads its kv head i // (q heads / kv heads)): one call when the
+    rank's runs (``q_runs``) have one length, else one a run. No call for a
+    rank without heads; k / v are sliced, never repeated per q head."""
+    runs = q_runs(m, n_tp, Hq, Hkv)
+    if not runs:
+        return []
+    a, first = runs[0][0], runs[0][2]
+    if len({hi - lo for lo, hi, _ in runs}) == 1:
+        return [(slice(0, runs[-1][1] - a), slice(0, len(runs)))]
+    return [(slice(lo - a, hi - a), slice(j - first, j - first + 1)) for lo, hi, j in runs]
+
+
+def per_call(attend, m: int, n_tp: int, Hq: int, Hkv: int, q: torch.Tensor, kv: tuple):
+    """``attend(q, *kv)`` of model rank ``m``'s q heads (B, S, heads, hd) over
+    its kv heads, one call per ``attn_calls`` entry: q's heads and those of
+    each tensor of ``kv`` (k, v and an int8 cache's scales, heads at dim 2)
+    sliced to the call's, the outputs joined by head."""
+    outs = [attend(q[:, :, hq], *(t[:, :, hk] for t in kv))
+            for hq, hk in attn_calls(m, n_tp, Hq, Hkv)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 2)
+

@@ -28,10 +28,12 @@ build the mesh and place the inputs, ``count_s`` (where the reference has
 ``cost``, ``collectives``, ``roofline``. Everything is rank 0's, as XLA's
 per-device program: ``cost`` and the temp memory from the counting pass
 over rank 0's ops, arguments / outputs from rank 0's blocks, collectives
-from ``mesh.log`` (one op of the per-device program once). A layout the
-explicit tensor parallelism cannot compute (q heads that do not divide the
-model ranks, ROADMAP "What still raises") gives an ``error`` record naming
-the raise.
+from ``mesh.log`` (one op of the per-device program once). Q heads that
+do not divide the model ranks split as GSPMD pads them
+(``tensor_parallel.head_range``: qwen2-7b's 28 on 16 ranks, 2 a rank, none
+on the last two), so rank 0's count is the reference's per-device program
+with its heads padded. A step that raises anyway gives an ``error`` record
+naming the raise.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\

@@ -24,8 +24,10 @@ recomputed in the backward (``torch.utils.checkpoint``, the reference's
 the flash kernel both ways (``kernels/flash_attention``: FlashAttentionFn).
 Under ``use_mesh`` ``train_loss`` runs the sharded path at the end of this
 module (``distributed.tensor_parallel``): the same function computed per
-rank of the mesh, each rank's attention in the flash kernel on its heads,
-its Mamba-2 and mLSTM blocks on its heads and its sLSTM on its batch rows.
+rank of the mesh, each rank's attention in the flash kernel on its heads
+(``head_range``: ceil(Hq / n) a rank, none past the last, as GSPMD pads
+them), its Mamba-2 and mLSTM blocks on its heads and its sLSTM on its batch
+rows.
 """
 from __future__ import annotations
 
@@ -307,8 +309,8 @@ def _rope(cfg: ArchConfig, t: torch.Tensor, positions) -> torch.Tensor:
 
 def _attend(cfg: ArchConfig, q, k, v, wo, **kw) -> torch.Tensor:
     """q's attention over (k, v) (the flash kernel on the card), projected by
-    ``wo``: one device's, or one tensor-parallel rank's heads and its rows
-    of ``wo`` (a partial sum)."""
+    ``wo``: one device's (a tensor-parallel rank's: ``_heads_attend`` and
+    ``_wo_tp``)."""
     B, S = q.shape[:2]
     out = A.attention(q, k, v, softcap=cfg.attn_softcap, **kw)
     return out.reshape(B, S, -1) @ wo.to(q.dtype)
@@ -825,12 +827,16 @@ def _remat_act(cfg: ArchConfig, fn, x: Act):
 
 
 def _kv_proj(cfg: ArchConfig, pm, x, m: int, n: int, gathered, bias: bool = True):
-    """(k, v) of compute rank ``m`` (B, S, count, hd) from its ``x``: its own
-    column blocks ``pm`` of ``wk`` / ``wv`` when the kv heads split evenly
-    over the ``n`` ranks, else the columns of the kv heads its q heads read,
-    cut from the weights ``gathered`` over ``model``."""
+    """(k, v) of compute rank ``m`` (B, S, count, hd) from its ``x``: the kv
+    heads its q heads read (``kv_heads_for``: a straddled group's two or
+    more; zero-width for a rank without q heads), from its own column
+    blocks ``pm`` of ``wk`` / ``wv`` when the kv heads split evenly over the
+    ``n`` ranks, else cut from the weights ``gathered`` over ``model``."""
     hd = cfg.hd
     first, cnt = TP.kv_heads_for(m, n, cfg.n_heads, cfg.n_kv_heads)
+    if cnt == 0:
+        empty = x.new_zeros((*x.shape[:2], 0, hd))
+        return empty, empty
     if gathered is not None:
         cols = slice(first * hd, (first + cnt) * hd)
         pm = {k: t[..., cols] for k, t in gathered.items()}
@@ -841,8 +847,9 @@ def _kv_proj(cfg: ArchConfig, pm, x, m: int, n: int, gathered, bias: bool = True
 def _kv_gathered(cfg: ArchConfig, ctx, p, d: int, keys=("wk", "wv", "bk", "bv")):
     """The kv weights gathered over ``model`` (recorded) when the kv heads do
     not split evenly over the compute ranks (qwen2-7b's one kv head of
-    ``reduced()`` on two or four ranks); None when each rank's own column
-    blocks hold whole heads."""
+    ``reduced()`` on two or four ranks, its 4 of 28 on 16: every uneven
+    q split is one of these); None when each rank's own column blocks hold
+    the whole kv heads its q heads read."""
     n = ctx.n_tp
     if n == 1 or cfg.n_kv_heads % n == 0:
         return None
@@ -850,88 +857,121 @@ def _kv_gathered(cfg: ArchConfig, ctx, p, d: int, keys=("wk", "wv", "bk", "bv"))
     return {k: ctx.gather_model(p[k], d, p[k][0].ndim - 1, cols) for k in keys if k in p}
 
 
+def _q_tp(cfg: ArchConfig, ctx, p, x, d: int) -> list:
+    """Each compute rank's q (B, S, heads, hd) of data rank d's whole ``x``:
+    its ``head_range`` of the q heads (ceil(Hq / n) a rank, none past the
+    last: GSPMD's padded layout), from the ``wq`` columns they read (and
+    ``bq``'s). Columns outside the rank's own block move as weights or as
+    products, whichever is fewer bytes (``col_product``; the bias as
+    pieces, ``take``); no rank gathers ``wq`` whole. None for a rank without
+    heads."""
+    n, hd, Hq = ctx.n_tp, cfg.hd, cfg.n_heads
+    heads = [TP.head_range(Hq, n, m) for m in range(n)]
+    want = [[(a * hd, b * hd)] if b > a else [] for a, b in heads]
+    qs = TP.col_product(ctx, x, p["wq"], Hq * hd, d, want)
+    if "bq" in p:
+        bs = TP.take(ctx, [b.to(x.dtype) for b in p["bq"]], d, -1,
+                     TP.block_ranges(Hq * hd, n), want)
+        qs = [None if q is None else q + b.to(q.device) for q, b in zip(qs, bs)]
+    return [None if q is None else q.reshape(*x.shape[:2], b - a, hd)
+            for q, (a, b) in zip(qs, heads)]
+
+
+def _heads_attend(cfg: ArchConfig, ctx, qs: list, ks: list, vs: list, **kw) -> list:
+    """Each compute rank's attention of its q heads over its kv heads
+    (B, S, heads x hd), one flash call per ``attn_calls`` entry (each a
+    uniform GQA group: the runs of a straddled kv group apart, k / v sliced,
+    never repeated per q head); None, and no call, for a rank without
+    heads."""
+    def attend(q, k, v):
+        return A.attention(q, k, v, softcap=cfg.attn_softcap, **kw)
+    ys = []
+    for m, (q, k, v) in enumerate(zip(qs, ks, vs)):
+        o = None if q is None else TP.per_call(attend, m, ctx.n_tp, cfg.n_heads,
+                                               cfg.n_kv_heads, q, (k, v))
+        ys.append(None if o is None else o.reshape(*o.shape[:2], -1))
+    return ys
+
+
+def _wo_tp(cfg: ArchConfig, ctx, wo: list, ys: list, d: int, split: bool):
+    """``wo`` row-parallel over each compute rank's heads' output ``ys[m]``
+    (``row_product``: its heads' rows moved to it as weights, or its output
+    columns to the rows' owners as products, whichever is fewer bytes; a
+    rank without heads adds nothing), ending in ``row_end``."""
+    n, hd, Hq = ctx.n_tp, cfg.hd, cfg.n_heads
+    have = [[(a * hd, b * hd)] if b > a else [] for a, b in
+            (TP.head_range(Hq, n, m) for m in range(n))]
+    return TP.row_product(ctx, ys, have, wo, Hq * hd, d, split)
+
+
+def _rope_rank(cfg: ArchConfig, t, pos):
+    """``_rope`` of one rank's q or k, of no heads as it is."""
+    return t if t is None or t.shape[2] == 0 else _rope(cfg, t, pos)
+
+
+def _qkv_tp(cfg: ArchConfig, ctx, p, x, positions, d: int):
+    """Each compute rank's q (``_q_tp``) and k / v (``_kv_proj``) of data
+    rank d's whole ``x``, roped at ``positions``."""
+    n = ctx.n_tp
+    qs = _q_tp(cfg, ctx, p, x, d)
+    gathered = _kv_gathered(cfg, ctx, p, d)
+    ks, vs = [], []
+    for m in range(n):
+        pm = {k: v[m] for k, v in p.items()}
+        k, v = _kv_proj(cfg, pm, x.to(pm["wk"].device), m, n, gathered)
+        pos = ctx.to_rank(positions, d, m)
+        qs[m], k = _rope_rank(cfg, qs[m], pos), _rope_rank(cfg, k, pos)
+        ks.append(k)
+        vs.append(v)
+    return qs, ks, vs
+
+
 def _attn_tp(cfg: ArchConfig, ctx, p, xd, positions, d: int, *, window, causal=True,
              kv_override=None, kv=None):
     """``_attn`` of data rank ``d`` with its compute ranks' blocks ``p``:
-    ``wq`` / ``wk`` / ``wv`` (+ biases) column-parallel by whole heads, each
-    rank attending over its own q heads (the flash kernel on the card), and
-    ``wo`` row-parallel, ending in ``row_end``. ``kv_override``: each
-    rank's cross (k, v). ``kv``: a prefill's cache layer (``kv_cache.
-    LayerKV``), which takes the sequence's k / v; attention then reads them
-    in the cache's dtype, as one device reads its cache."""
+    each rank's ``head_range`` of q heads and the kv heads they read
+    (``_qkv_tp``), its attention over them (``_heads_attend``: the flash
+    kernel on the card), and ``wo`` row-parallel (``_wo_tp``).
+    ``kv_override``: each rank's cross (k, v). ``kv``: a prefill's cache
+    layer (``kv_cache.LayerKV``), which takes the sequence's k / v;
+    attention then reads them in the cache's dtype, as one device reads its
+    cache."""
     x = ctx.seq_full(xd, d)
-    n = _q_split(cfg, ctx)
-    gathered = None if kv_override is not None else _kv_gathered(cfg, ctx, p, d)
-    qs, ks, vs = [], [], []
-    for m in range(n):
-        pm = {k: v[m] for k, v in p.items()}
-        xm = x.to(pm["wq"].device)
-        q = _proj(xm, pm, "wq", "bq", cfg.n_heads // n, cfg.hd)
-        if kv_override is not None:
-            k, v = kv_override[0][m], kv_override[1][m]
-        else:
-            k, v = _kv_proj(cfg, pm, xm, m, n, gathered)
-            pos = ctx.to_rank(positions, d, m)
-            q, k = _rope(cfg, q, pos), _rope(cfg, k, pos)
-        qs.append(q)
-        ks.append(k)
-        vs.append(v)
+    if kv_override is not None:
+        qs, (ks, vs) = _q_tp(cfg, ctx, p, x, d), kv_override
+        kw = dict(causal=False, kv_len=ks[0].shape[1])
+    else:
+        qs, ks, vs = _qkv_tp(cfg, ctx, p, x, positions, d)
+        kw = dict(causal=causal, kv_len=x.shape[1])
     if kv is not None:
         KV.write(ctx, kv, d, ks, vs, 0, (cfg.n_heads, cfg.n_kv_heads), _quantize_kv)
         ks, vs = ([t.to(kv.k.dtype) for t in ts] for ts in (ks, vs))
-    if kv_override is not None:
-        kw = dict(causal=False, kv_len=ks[0].shape[1])
-    else:
-        kw = dict(causal=causal, kv_len=x.shape[1])
-    parts = [_attend(cfg, q, k.to(x.dtype), v.to(x.dtype), p["wo"][m], window=window,
-                     q_offset=0, **kw) for m, (q, k, v) in enumerate(zip(qs, ks, vs))]
-    return ctx.row_end(parts, d, isinstance(xd, tuple))
-
-
-def _q_split(cfg: ArchConfig, ctx) -> int:
-    """The compute ranks that split attention's q heads (raises where they
-    do not divide)."""
-    n = ctx.n_tp
-    if cfg.n_heads % n:
-        raise ValueError(f"{cfg.n_heads} q heads do not split over {n} model ranks")
-    return n
+    ys = _heads_attend(cfg, ctx, qs, [k.to(x.dtype) for k in ks], [v.to(x.dtype) for v in vs],
+                       window=window, q_offset=0, **kw)
+    return _wo_tp(cfg, ctx, p["wo"], ys, d, isinstance(xd, tuple))
 
 
 def _attn_cached_tp(cfg: ArchConfig, ctx, p, xd, positions, d: int, *, window, kv,
                     pos=None):
     """A decode step's attention of data rank ``d`` over its placed cache
-    layer ``kv``: the new token's q / k / v column-parallel as in
-    ``_attn_tp``, its k / v written at ``pos`` (``kv_cache.write``), the
-    attention over the cache's positions [0, pos] (``kv_cache.attend``:
-    per sequence slice through the flash kernel's lse, then combined), and
-    ``wo`` row-parallel. ``pos`` None: cross attention over every position
-    of ``kv`` (no write, no rope)."""
+    layer ``kv``: the new token's q / k / v per rank as in ``_attn_tp``,
+    its k / v written at ``pos`` (``kv_cache.write``), the attention over
+    the cache's positions [0, pos] (``kv_cache.attend``: per sequence slice
+    through the flash kernel's lse, then combined), and ``wo``
+    row-parallel. ``pos`` None: cross attention over every position of
+    ``kv`` (no write, no rope)."""
     x = ctx.seq_full(xd, d)
-    n = _q_split(cfg, ctx)
     heads = (cfg.n_heads, cfg.n_kv_heads)
-    cross = pos is None
-    gathered = None if cross else _kv_gathered(cfg, ctx, p, d)
-    qs, ks, vs = [], [], []
-    for m in range(n):
-        pm = {k: v[m] for k, v in p.items()}
-        xm = x.to(pm["wq"].device)
-        q = _proj(xm, pm, "wq", "bq", cfg.n_heads // n, cfg.hd)
-        if not cross:
-            k, v = _kv_proj(cfg, pm, xm, m, n, gathered)
-            ps = ctx.to_rank(positions, d, m)
-            q, k = _rope(cfg, q, ps), _rope(cfg, k, ps)
-            ks.append(k)
-            vs.append(v)
-        qs.append(q)
-    if cross:
+    if pos is None:
+        qs = _q_tp(cfg, ctx, p, x, d)
         kw = dict(kv_len=kv.k.shape[1], causal=False, window=NO_WINDOW)
     else:
+        qs, ks, vs = _qkv_tp(cfg, ctx, p, x, positions, d)
         KV.write(ctx, kv, d, ks, vs, pos, heads, _quantize_kv)
         kw = dict(kv_len=pos + 1, causal=True, window=window)
     outs = KV.attend(ctx, kv, d, qs, softcap=cfg.attn_softcap, heads=heads, **kw)
-    B = x.shape[0]
-    parts = [o.reshape(B, 1, -1) @ p["wo"][m].to(o.dtype) for m, o in enumerate(outs)]
-    return ctx.row_end(parts, d, isinstance(xd, tuple))
+    ys = [None if o is None else o.reshape(*o.shape[:2], -1) for o in outs]
+    return _wo_tp(cfg, ctx, p["wo"], ys, d, isinstance(xd, tuple))
 
 
 def _block_tp(x: Act, p, cfg: ArchConfig, positions, *, window, causal=True,
@@ -975,10 +1015,8 @@ def _block_tp(x: Act, p, cfg: ArchConfig, positions, *, window, causal=True,
     h_in = ctx.each(lambda d: ctx.rowwise(norm, parts[d], views[d]["ln_mlp"]))
     aux = 0.0
     if cfg.n_experts:
-        if cfg.moe_impl == "dense":
-            raise ValueError("moe_impl='dense' (the single-device oracle) has no sharded "
-                             "path; the mesh runs the sorted dispatch")
-        hs, aux = MOE.moe_tp(ctx, [pv["moe"] for pv in views], h_in, cfg.moe_top_k)
+        moe = MOE.moe_dense_tp if cfg.moe_impl == "dense" else MOE.moe_tp
+        hs, aux = moe(ctx, [pv["moe"] for pv in views], h_in, cfg.moe_top_k)
     else:
         hs = ctx.each(lambda d: F.mlp_tp(ctx, views[d]["mlp"], h_in[d], cfg.mlp_act, d))
     if cfg.sandwich_norm:

@@ -87,13 +87,24 @@ def moe_dense(params, x: torch.Tensor, top_k: int):
     B, S, D = x.shape
     x2 = x.reshape(-1, D)
     weights, experts, aux = _router(params, x2, top_k)
-    dt = x.dtype
-    h = F.silu(torch.einsum("td,edf->tef", x2, params["w_gate"].to(dt)))
-    y_all = torch.einsum("tef,efd->ted", h, params["w_down"].to(dt))  # (T, E, D)
-    comb = torch.zeros((x2.shape[0], params["router"].shape[-1]), dtype=torch.float32,
-                       device=x.device).scatter_add_(1, experts, weights)
-    y = torch.einsum("te,ted->td", comb.to(dt), y_all)
+    comb = _comb(weights, experts, params["router"].shape[-1])
+    y = _dense_experts(x2, comb, params["w_gate"], params["w_down"], x.dtype)
     return y.reshape(B, S, D), aux
+
+
+def _comb(weights: torch.Tensor, experts: torch.Tensor, E: int) -> torch.Tensor:
+    """(T, E) float32: each token's routing weights at its chosen experts."""
+    return torch.zeros((weights.shape[0], E), dtype=torch.float32,
+                       device=weights.device).scatter_add_(1, experts, weights)
+
+
+def _dense_experts(x2: torch.Tensor, comb: torch.Tensor, w_gate: torch.Tensor,
+                   w_down: torch.Tensor, dt) -> torch.Tensor:
+    """Every expert of ``w_gate`` / ``w_down`` on every token of x2 (T, D),
+    combined by ``comb`` (T, E), in ``dt``: (T, D)."""
+    h = F.silu(torch.einsum("td,edf->tef", x2, w_gate.to(dt)))
+    y_all = torch.einsum("tef,efd->ted", h, w_down.to(dt))  # (T, E, D)
+    return torch.einsum("te,ted->td", comb.to(dt), y_all)
 
 
 def moe_sorted(params, x: torch.Tensor, top_k: int,
@@ -231,3 +242,32 @@ def moe_tp(ctx, views: list, xds: list, top_k: int):
                      ctx.to_rank(rows[d], d))
         return ctx.like(y.reshape(B, S, D), xds[d], d)
     return ctx.each(combine), aux
+
+
+def moe_dense_tp(ctx, views: list, xds: list, top_k: int):
+    """``moe_dense`` (the oracle) over the mesh: each data rank routes its
+    own tokens and runs every expert on them, each expert's d_ff split over
+    ``model`` as ``ffn.mlp_tp`` splits an MLP's (``w_gate`` column-parallel,
+    ``w_down`` row-parallel: each model rank's combined output is a partial
+    sum that ``row_end`` adds up; a padded d_ff column gives 0). The
+    load-balancing loss is the global one, as ``moe_tp``'s: psums of the
+    data ranks' probability and first-choice sums over every token."""
+    xs = [ctx.seq_full(xd, d) for d, xd in enumerate(xds)]
+    B, S, D = xs[0].shape
+    T = ctx.n_dp * B * S
+    E = views[0]["router"][0].shape[-1]
+
+    def route(d):
+        w, e, probs = _route(views[d]["router"][0], xs[d].reshape(-1, D), top_k)
+        return _comb(w, e, E), probs.sum(dim=0), F.one_hot(e[:, 0], E).float().sum(dim=0)
+    routed = ctx.each(route)
+    me = ctx.psum_data([r[1] for r in routed]) / T
+    ce = ctx.psum_data([r[2] for r in routed]) / T
+    aux = E * torch.sum(me * ce)
+
+    def experts(d):
+        x2, dt = xs[d].reshape(-1, D), xs[d].dtype
+        parts = [_dense_experts(x2.to(wg.device), routed[d][0].to(wg.device), wg, wd, dt)
+                 .reshape(B, S, D) for wg, wd in zip(views[d]["w_gate"], views[d]["w_down"])]
+        return ctx.row_end(parts, d, isinstance(xds[d], tuple))
+    return ctx.each(experts), aux

@@ -855,6 +855,48 @@ def test_ssm_blocks_split_by_head_on_card_equal_cpu(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads,shape", [((6, 2), (1, 4)), ((4, 1), (2, 8)), ((8, 2), (1, 3))],
+                         ids=["6q2kv-1x4", "4q1kv-2x8", "8q2kv-1x3"])
+def test_uneven_head_split_on_card_equals_cpu(cuda_device, heads, shape):
+    """Attention's q heads split unevenly over the model ranks of a debug
+    mesh of the card (``head_range``: rank 1 of 6 q / 2 kv heads on 4
+    straddles the kv groups, ranks 4-7 of 8 own none, rank 1 of 8 / 2 on 3
+    runs its unequal runs as two flash calls over one kv head each): a
+    training loss and its gradients' norm, then a prefill and 3 decode
+    steps, against the same mesh on the CPU (the plain versions), fed the
+    card's greedy tokens: loss within rtol 1e-2, gradient norm within 5%,
+    logits within rtol 0.05 / atol 0.1; a repeat on the card bit-equal."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.step import sharded_loss_and_grads
+    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(), n_heads=heads[0],
+                              n_kv_heads=heads[1])
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 96)).astype(np.int32)}
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+
+    def train(dev):
+        tree = _tree_to(params, dev)
+        placed = shard_tree(tree, param_shardings(tree, make_debug_mesh(*shape, device=dev)))
+        loss, _, grads = sharded_loss_and_grads(cfg, placed, batch)
+        return float(loss), float(sum(g.float().square().sum() for g in grads.values())) ** 0.5
+    card, again, cpu = train(cuda_device), train(cuda_device), train("cpu")
+    assert card == again
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-2)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=0.05)
+    out, fed = _serve(cfg, _tree_to(params, cuda_device), make_debug_mesh(*shape), batch, 3)
+    out2, _ = _serve(cfg, _tree_to(params, cuda_device), make_debug_mesh(*shape), batch, 3, fed)
+    ref, _ = _serve(cfg, params, make_debug_mesh(*shape, device="cpu"), batch, 3, fed)
+    for a, b, c in zip(out, out2, ref):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=0.05, atol=0.1)
+
+
+@pytest.mark.cuda
 def test_seq_shard_decode_on_card_equals_one_device(cuda_device):
     """A long-context (``shard_seq``) decode at batch 1 over a random cache
     whose 256 positions spread over the 8 ranks, at slot 100: one split-KV

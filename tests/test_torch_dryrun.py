@@ -29,6 +29,7 @@
   per rank equal the closed form, and ``launch.report`` makes both tables
   of its records.
 """
+import dataclasses
 import functools
 import importlib
 import json
@@ -296,3 +297,30 @@ def test_one_cell_on_meta_and_the_report(tmp_path):
     assert "granite-moe-1b-a400m | decode_32k | 16x16 | ok" in table
     assert "long_500k | 16x16 | skipped" in table
     assert "granite-moe-1b-a400m | decode_32k |" in R.roofline_table(recs)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_uneven_q_heads_cell_counts_rank_zeros_two_heads(kind, monkeypatch):
+    """qwen2-7b's head layout (28 q / 4 kv heads; ``reduced()``'s d_model
+    and head_dim) on a meta (1, 16) mesh, the production mesh's 16 model
+    ranks, which the port used to record as ``error``: the cell is ``ok``,
+    and rank 0's flash FLOPs are the closed form of its ``head_range``, 2
+    heads (forward 4 x d a kept pair, backward 10 x d); a decode's, every
+    q head (gathered) over rank 0's 1/16 of the cache."""
+    from repro_torch.configs.base import ShapeSpec
+    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(), n_heads=28, n_kv_heads=4)
+    B, Sq = 2, 256
+    shape = ShapeSpec(f"{kind}_uneven", kind, Sq, B)
+    monkeypatch.setattr(D, "get_arch", lambda name: cfg)
+    monkeypatch.setitem(D.SHAPES, shape.name, shape)
+    monkeypatch.setattr(D, "make_production_mesh",
+                        lambda multi_pod, device: make_debug_mesh(1, 16, device=device))
+    rec = D.run_cell("qwen2-7b", shape.name, False)
+    assert rec["status"] == "ok" and rec["chips"] == 16
+    assert TP.head_range(28, 16, 0) == (0, 2)
+    pairs, hd, L = Sq * (Sq + 1) // 2, cfg.hd, cfg.n_layers
+    want = {"train": L * (4 + 10) * hd * B * 2 * pairs,
+            "prefill": L * 4 * hd * B * 2 * pairs,
+            "decode": L * 4 * hd * B * cfg.n_heads * (Sq // 16)}[kind]
+    assert rec["cost"]["flash_flops"] == want
+    assert rec["collectives"]["total_bytes"] > 0

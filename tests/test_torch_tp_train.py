@@ -120,8 +120,8 @@ def test_sharded_loss_and_grads_equal_unsharded_in_float32(name, shape, f32):
 def test_sharded_moe_equals_the_dense_oracle_when_nothing_drops(shape, f32):
     """At 128 tokens no expert drops (the capacity's floor), so the sharded
     sorted dispatch computes the function of the single-device dense oracle
-    (``moe_impl="dense"``: every expert for every token); the oracle has no
-    sharded path and raises on the mesh."""
+    (``moe_impl="dense"``: every expert for every token); the oracle itself
+    also runs on the mesh (``moe.moe_dense_tp``) and gives that loss."""
     import dataclasses
     cfg = get_arch("granite-moe-3b-a800m").reduced()
     dense = dataclasses.replace(cfg, moe_impl="dense")
@@ -134,8 +134,9 @@ def test_sharded_moe_equals_the_dense_oracle_when_nothing_drops(shape, f32):
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
     for g, w in zip(tree_leaves(full_grads(placed, leaf_tree, grads)), want_grads):
         assert rel_l2(g, w) <= 1e-4
-    with use_mesh(mesh), pytest.raises(ValueError, match="dense"):
-        M.train_loss(dense, placed, batch)
+    with use_mesh(mesh):
+        dense_loss = float(M.train_loss(dense, placed, batch))
+    np.testing.assert_allclose(dense_loss, float(want_loss), rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=["4x2", "2x4"])
