@@ -1,0 +1,1 @@
+"""mintbench: the benchmark of the PyTorch and CUDA port (``repro_torch``)."""
