@@ -33,7 +33,8 @@ from __future__ import annotations
 
 from repro_torch.obs import Histogram, Timeline, Trace
 
-_ATTR_KEYS = ("hit", "batch", "union", "index_kinds", "hbm_bytes_modeled")
+_ATTR_KEYS = ("hit", "batch", "lists", "rows", "ek", "cand", "union", "index_kinds",
+             "hbm_bytes_modeled")
 
 
 def _fmt_attrs(attrs: dict) -> str:

@@ -237,13 +237,13 @@ class MicroBatcher:
         t_wall = time.time()  # arrival stamp BEFORE the lock: a submitter
         # blocked behind a stop-the-world hold is measured as waiting
         obs = self.obs
-        t_sub = time.perf_counter() if obs.enabled else 0.0
+        t_sub = obs.now() if obs.enabled else 0.0
         with self.lock:
             t_plan1 = t_sub
             if plan is None:
                 plan = self.plan_for(query)
                 if obs.enabled:
-                    t_plan1 = time.perf_counter()
+                    t_plan1 = obs.now()
             ticket = Ticket(query=query, plan=plan, t_submit=now,
                             tenant=tenant, t_submit_wall=t_wall)
             if obs.enabled:
@@ -251,10 +251,10 @@ class MicroBatcher:
                     "ticket", t0=t_sub, qid=query.qid, tenant=str(tenant))
                 obs.counter("tickets_submitted", tenant=str(tenant))
             if self.semcache is not None:
-                t_p0 = time.perf_counter() if obs.enabled else 0.0
+                t_p0 = obs.now() if obs.enabled else 0.0
                 ids, token = self.semcache.probe(query, plan, tenant)
                 if obs.enabled:
-                    t_p1 = time.perf_counter()
+                    t_p1 = obs.now()
                     root = ticket.trace.root
                     esp = obs.span_at("enqueue", t_sub, t_p0, parent=root)
                     if t_plan1 > t_sub:  # plan-cache lookup nests in enqueue
@@ -279,7 +279,7 @@ class MicroBatcher:
                     self.stats.cache_misses += 1
                     ticket.cache_token = token
             elif obs.enabled:
-                t_enq = time.perf_counter()
+                t_enq = obs.now()
                 esp = obs.span_at("enqueue", t_sub, t_enq, parent=ticket.trace.root)
                 if t_plan1 > t_sub:
                     obs.span_at("plan_cache", t_sub, t_plan1, parent=esp)
@@ -464,13 +464,13 @@ class MicroBatcher:
                 else self.execute(tickets)
             self._apply_results(tickets, results, now)
             return
-        t_x0 = time.perf_counter()
+        t_x0 = obs.now()
         with obs.span("dispatch", t0=t_x0, batch=len(tickets)) as dsp:
             results = self.execute(tickets, staged) if pass_staged \
                 else self.execute(tickets)
         t_x1 = dsp.t1
         self._apply_results(tickets, results, now)
-        t_x2 = time.perf_counter()
+        t_x2 = obs.now()
         msp = obs.span_at("merge", t_x1, t_x2, batch=len(tickets))
         obs.observe("dispatch_ms", (t_x1 - t_x0) * 1e3)
         for ticket in tickets:

@@ -93,7 +93,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.types import Query, QueryPlan, Workload
+from repro_torch.core.types import IndexSpec, Query, QueryPlan, Workload
 from repro_torch.data.vectors import MultiVectorDatabase
 from repro_torch.distributed.collectives import take_rows
 from repro_torch.distributed.sharding import row_sharding
@@ -238,6 +238,33 @@ def cache_probe_scan(qmat, mat, valid_n: int, device=None, mat_sq=None):
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+class _StageClock:
+    """One engine step's span and its stages, built only for an enabled
+    observer. ``lap(name)`` ends a stage where the last one ended, so the
+    stages tile the step; ``close(name, **attrs)`` hangs the step's span,
+    its stages inside, under the current span (the group's). Every stage
+    that touches the device ends in a copy to the host, so a stage times
+    the work, not its enqueue."""
+
+    __slots__ = ("obs", "t0", "t", "laps")
+
+    def __init__(self, obs):
+        self.obs = obs
+        self.t0 = self.t = obs.now()
+        self.laps: list[tuple[str, float, float]] = []
+
+    def lap(self, name: str) -> None:
+        t = self.obs.now()
+        self.laps.append((name, self.t, t))
+        self.t = t
+
+    def close(self, name: str, **attrs) -> None:
+        obs = self.obs
+        step = obs.span_at(name, self.t0, obs.now(), parent=obs.current(), **attrs)
+        for stage, t0, t1 in self.laps:
+            obs.span_at(stage, t0, t1, parent=step)
 
 
 class BatchEngine:
@@ -452,10 +479,10 @@ class BatchEngine:
         out = [None] * len(pairs)
         groups, sqs = self._staged_groups(pairs, staged)
         for group, sq in zip(groups, sqs):
-            t0 = time.time()
+            t0 = time.perf_counter()
             ids_list, costs, ndists, eks_maps = self._observed_group(group, sq)
+            wall = (time.perf_counter() - t0) * 1e3 / max(group.batch, 1)
             gts = self._group_ground_truth(group, gt_cache)
-            wall = (time.time() - t0) * 1e3 / max(group.batch, 1)
             for item, ids, cost, nd, eks, gt in zip(
                     group.items, ids_list, costs, ndists, eks_maps, gts):
                 gtset = set(int(i) for i in gt)
@@ -558,29 +585,31 @@ class BatchEngine:
         mv = self._mv()
 
         if not specs:  # flat-scan fallback group (no useful index / all ek=0)
+            st = _StageClock(self.obs) if self.obs.enabled else None
             col = self.cstore.device(group.key.vid)
             qmat = self._qmat(col, items, sq=sq, slot=-1)
+            out_ids = []
             if mv is None:
                 ids = self._flat_scan(col, qmat, min(group.max_k, col.n_rows))
-                out_ids = []
                 for i, it in enumerate(items):
                     out_ids.append(ids[i, : min(it.query.k, col.n_rows)])
                     costs[i] = float(it.query.dim() * col.n_rows)
                     ndists[i] = col.n_rows
-                return out_ids, costs, ndists, eks_maps
-            # mutated table: base + delta merged exactly — ONE streaming
-            # launch when available, else masked base scan + delta scan
-            bs, bids, ds, dids, n_delta = self._scan_mv(
-                mv, col, qmat, group.key.vid, items, group.max_k)
-            out_ids = []
-            for i, it in enumerate(items):
-                k_i = min(it.query.k, mv.n_live)
-                out_ids.append(self._merge_scored(
-                    bs[i], bids[i],
-                    None if ds is None else ds[i],
-                    None if ds is None else dids[i], k_i))
-                costs[i] = float(it.query.dim() * (col.n_rows + n_delta))
-                ndists[i] = col.n_rows + n_delta
+            else:
+                # mutated table: base + delta merged exactly — ONE streaming
+                # launch when available, else masked base scan + delta scan
+                bs, bids, ds, dids, n_delta = self._scan_mv(
+                    mv, col, qmat, group.key.vid, items, group.max_k)
+                for i, it in enumerate(items):
+                    k_i = min(it.query.k, mv.n_live)
+                    out_ids.append(self._merge_scored(
+                        bs[i], bids[i],
+                        None if ds is None else ds[i],
+                        None if ds is None else dids[i], k_i))
+                    costs[i] = float(it.query.dim() * (col.n_rows + n_delta))
+                    ndists[i] = col.n_rows + n_delta
+            if st is not None:
+                st.close("flat_scan", index=IndexSpec(group.key.vid, "flat").name)
             return out_ids, costs, ndists, eks_maps
 
         cand: list[list[np.ndarray]] = [[np.empty(0, np.int64)] * len(specs)
@@ -599,6 +628,7 @@ class BatchEngine:
                 self._ivf_scan(group, spec, j, cand, costs, ndists,
                                mv=mv, scored=scored, sq=sq)
             elif kind == "flat":
+                st = _StageClock(self.obs) if self.obs.enabled else None
                 col = self.cstore.device(spec.vid)
                 qmat = self._qmat(col, items, spec.vid, sq=sq, slot=j)
                 if mv is None:
@@ -623,6 +653,8 @@ class BatchEngine:
                         scored[i] = (stable[i], s[i])
                         costs[i] += float(col.dim * col.n_rows)
                         ndists[i] += col.n_rows
+                if st is not None:
+                    st.close("flat_scan", index=spec.name)
             else:  # graph kinds: sequential walks — per-query fallback
                 idx = self.store.get(spec)
                 for i, it in enumerate(items):
@@ -817,30 +849,32 @@ class BatchEngine:
         mv = self._mv()
 
         if not specs:  # keep-masked flat fallback scan
+            st = _StageClock(self.obs) if self.obs.enabled else None
             col = self.cstore.device(group.key.vid)
             qmat = self._qmat(col, items, sq=sq, slot=-1)
+            out_ids = []
             if mv is None:
                 s, ids = self._filtered_flat_scan(
                     col, qmat, min(group.max_k, col.n_rows), fs)
-                out_ids = []
                 for i, it in enumerate(items):
                     out_ids.append(self._merge_scored(
                         s[i], ids[i].astype(np.int64), None, None,
                         min(it.query.k, fs.n_match)))
                     costs[i] = float(it.query.dim() * col.n_rows)
                     ndists[i] = col.n_rows
-                return out_ids, costs, ndists, eks_maps
-            bs, bids, ds, dids, n_delta = self._scan_mv(
-                mv, col, qmat, group.key.vid, items, group.max_k, fstate=fs)
-            out_ids = []
-            for i, it in enumerate(items):
-                k_i = min(it.query.k, fs.n_match)
-                out_ids.append(self._merge_scored(
-                    bs[i], bids[i],
-                    None if ds is None else ds[i],
-                    None if ds is None else dids[i], k_i))
-                costs[i] = float(it.query.dim() * (col.n_rows + n_delta))
-                ndists[i] = col.n_rows + n_delta
+            else:
+                bs, bids, ds, dids, n_delta = self._scan_mv(
+                    mv, col, qmat, group.key.vid, items, group.max_k, fstate=fs)
+                for i, it in enumerate(items):
+                    k_i = min(it.query.k, fs.n_match)
+                    out_ids.append(self._merge_scored(
+                        bs[i], bids[i],
+                        None if ds is None else ds[i],
+                        None if ds is None else dids[i], k_i))
+                    costs[i] = float(it.query.dim() * (col.n_rows + n_delta))
+                    ndists[i] = col.n_rows + n_delta
+            if st is not None:
+                st.close("flat_scan", index=IndexSpec(group.key.vid, "flat").name)
             return out_ids, costs, ndists, eks_maps
 
         cand: list[list[np.ndarray]] = [[np.empty(0, np.int64)] * len(specs)
@@ -857,6 +891,7 @@ class BatchEngine:
                 self._ivf_scan(group, spec, j, cand, costs, ndists,
                                mv=mv, scored=scored, sq=sq, fstate=fs)
             elif kind == "flat":
+                st = _StageClock(self.obs) if self.obs.enabled else None
                 col = self.cstore.device(spec.vid)
                 qmat = self._qmat(col, items, spec.vid, sq=sq, slot=j)
                 if mv is None:
@@ -881,6 +916,8 @@ class BatchEngine:
                         scored[i] = (stable[i], s[i])
                         costs[i] += float(col.dim * col.n_rows)
                         ndists[i] += col.n_rows
+                if st is not None:
+                    st.close("flat_scan", index=spec.name)
             else:  # graph kinds: walk, then drop non-matching/dead results
                 idx = self.store.get(spec)
                 for i, it in enumerate(items):
@@ -1110,7 +1147,15 @@ class BatchEngine:
         (``mv``), tombstoned rows are score-killed before selection and the
         surviving candidates land in ``scored`` as (stable ids, scores) for
         the delta merge; under a predicate (``fstate``) non-matching probe
-        rows are score-killed the same way."""
+        rows are score-killed the same way.
+
+        Observed, the scan is an ``ivf_scan`` span (the index, and the
+        lists, rows and ek summed over the group's queries) holding its
+        stages: ``ivf_centroids`` (centroid scoring and its copy back),
+        ``ivf_probe`` (each query's lists and probed rows, on the host),
+        ``ivf_gather`` (the probed rows' scores and their copy back) and
+        ``ivf_select`` (each query's top ek, on the host)."""
+        st = _StageClock(self.obs) if self.obs.enabled else None
         idx = self.store.get(spec)
         items = group.items
         col = self.cstore.device(spec.vid)
@@ -1120,6 +1165,8 @@ class BatchEngine:
             cent = np.pad(cent, ((0, 0), (0, col.padded_dim - cent.shape[1])))
         csims = self._batched_scores(qmat, torch.as_tensor(cent, device=self.device))
         self.counters.scan += 1
+        if st is not None:
+            st.lap("ivf_centroids")
 
         rows_list = []
         for i, it in enumerate(items):
@@ -1136,9 +1183,13 @@ class BatchEngine:
         rows_mat = np.zeros((len(items), R), dtype=np.int64)
         for i, rows in enumerate(rows_list):
             rows_mat[i, : rows.shape[0]] = rows
+        if st is not None:
+            st.lap("ivf_probe")
         scores = _host(_gather_scores(
             lambda ids: self._take(col, ids),
             torch.as_tensor(rows_mat, device=self.device), qmat))
+        if st is not None:
+            st.lap("ivf_gather")
         for i, (it, rows) in enumerate(zip(items, rows_list)):
             if rows.shape[0] == 0:
                 if scored is not None:
@@ -1167,6 +1218,13 @@ class BatchEngine:
                 scored[i] = (stable, s[sel][keep])
             else:
                 cand[i][j] = rows[sel]
+        if st is not None:
+            st.lap("ivf_select")
+            st.close("ivf_scan", index=spec.name,
+                     lists=sum(idx._nprobe_for(it.eks[j]) for it in items),
+                     rows=sum(int(r.shape[0]) for r in rows_list),
+                     ek=sum(min(it.eks[j], int(r.shape[0]))
+                            for it, r in zip(items, rows_list)))
 
     def _rerank(self, group: PlanGroup, cand, mv=None,
                 sq: dict | None = None) -> list[np.ndarray]:
@@ -1175,9 +1233,15 @@ class BatchEngine:
         selection slices its own candidates (sorted ids + stable ordering —
         the same tie-breaking as the per-query numpy path). Under mutations
         the union holds stable ids and each is gathered from whichever side
-        (base column / delta segment) physically stores it."""
+        (base column / delta segment) physically stores it.
+
+        Observed, the rerank is a ``rerank`` span (the group's union, and
+        ``cand``, its candidates counted before de-duplication) holding its
+        stages: ``rerank_union`` (each query's union and the group's, on
+        the host), ``rerank_score`` (the union's scores and their copy
+        back) and ``rerank_order`` (each query's top k, on the host)."""
+        st = _StageClock(self.obs) if self.obs.enabled else None
         items = group.items
-        col = self.cstore.device(group.key.vid)
         unions = []
         for i in range(len(items)):
             parts = [c for c in cand[i] if c.shape[0]]
@@ -1185,19 +1249,22 @@ class BatchEngine:
                           else np.empty(0, np.int64))
         nonempty = [u for u in unions if u.shape[0]]
         if not nonempty:
+            if st is not None:
+                st.lap("rerank_union")
+                st.close("rerank", batch=len(items), union=0, cand=0)
             return [np.empty(0, np.int64) for _ in items]
-        t_r0 = time.perf_counter() if self.obs.enabled else 0.0
         gunion = np.unique(np.concatenate(nonempty))
+        if st is not None:
+            st.lap("rerank_union")
+        col = self.cstore.device(group.key.vid)
         qmat = self._qmat(col, items, sq=sq, slot="rerank")
         if mv is None:
             scores = self._gathered_scores(col, qmat, gunion)
         else:
             scores = self._mv_union_scores(mv, group, col, qmat, gunion)
         self.counters.rerank += 1
-        if self.obs.enabled:
-            self.obs.span_at("rerank", t_r0, time.perf_counter(),
-                             parent=self.obs.current(), batch=len(items),
-                             union=int(gunion.shape[0]))
+        if st is not None:
+            st.lap("rerank_score")
         out = []
         for i, it in enumerate(items):
             if unions[i].shape[0] == 0:
@@ -1207,6 +1274,10 @@ class BatchEngine:
             s = scores[i, pos]
             top = np.argsort(-s, kind="stable")[: it.query.k]
             out.append(unions[i][top])
+        if st is not None:
+            st.lap("rerank_order")
+            st.close("rerank", batch=len(items), union=int(gunion.shape[0]),
+                     cand=sum(int(c.shape[0]) for row in cand for c in row))
         return out
 
     def _mv_union_scores(self, mv, group: PlanGroup, col: DeviceColumn,
