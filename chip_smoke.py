@@ -37,16 +37,22 @@ into ``build/kernels/``), then:
      0.9 / 4 indexes, indexes built, the MINT and PerColumn plans served
      through ``BatchEngine`` (streaming scan), again with the two-pass scan
      (ids must be equal), then 64-query bursts that
-     must take one scan dispatch per (group, index). Kernel launch counts are
+     must take one scan dispatch per (group, index). The device rerank's ids
+     at its largest single-query group and at the plan burst's 64-query
+     group must equal the host algorithm's (``np.unique`` unions, stable
+     ``argsort``) over the same scores, and the plan burst and its rerank
+     are timed (median of 5). Kernel launch counts are
      zeroed before and read after; every kernel must have run. The shape of
      the largest distance dispatch of each kind (IVF centroids, rerank union,
-     two-pass flat scan) is noted;
+     a single query's rerank union, two-pass flat scan) and of the rerank's
+     top-k input is noted;
   4. each kernel against its plain version again, and timed (device time:
      CUDA events around each call behind a busy stream, median of 20)
      beside the plain version, one PyTorch library call and the bound, at
      those main-path shapes; the two-pass scan bit-equal to the streaming
      scan at B = 1 and 64 over the main path's column, and timed; top-k
-     also at its worst case (scores rising along each row);
+     also at its worst case (scores rising along each row) and at the
+     rerank's own (1, U) and masked (64, U) inputs, bit for bit;
   5. filtered serving on that tuned database (phase ``filter_path``):
      ``synth_attributes`` over its rows, the bisimple queries under Range
      predicates keeping 0.1%, 1%, 10% and 50% of the rows, an Eq and a
@@ -361,7 +367,13 @@ class DistanceDispatches:
     the two-pass flat scan (whose scores then go through top-k). It wraps
     the engines' methods to note each dispatch's shape and queries; what
     they compute is unchanged. The kernels are then held against their plain
-    versions and timed at exactly these shapes."""
+    versions and timed at exactly these shapes.
+
+    It also notes the largest top-k input of the device rerank's order, one
+    for single-query groups (``rerank_order``) and one for wider groups,
+    whose non-members are masked to NEG_INF (``rerank_order_masked``): the
+    (B, U) scores, the group's k, each query's k, its candidate lists and the
+    ids the engine returned (``check_rerank_order`` holds them)."""
 
     def __init__(self):
         self.kind = self.col = None
@@ -374,11 +386,22 @@ class DistanceDispatches:
             self.largest[kind] = dict(shape=(B, n, d), qmat=qmat.clone(), rows=rows,
                                       **extra)
 
+    def note_order(self, group, cand, scores, k, out):
+        kind = "rerank_order" if scores.shape[0] == 1 else "rerank_order_masked"
+        old = self.largest.get(kind)
+        if old is None or scores.numel() > math.prod(old["shape"]):
+            self.largest[kind] = dict(
+                shape=tuple(scores.shape), scores=scores.clone(), k=k,
+                ks=[it.query.k for it in group.items], cand=[list(r) for r in cand],
+                out=[np.array(o) for o in out])
+
     def attach(self, engine):
         """Wraps the engine's dispatch methods; returns an undo."""
+        import repro_torch.serve.engine as engine_mod
         names = ("_ivf_scan", "_rerank", "_prefilter_group", "_flat_scan_scored",
                  "_batched_scores")
         ivf_scan, rerank, prefilter, flat, scored = (getattr(engine, n) for n in names)
+        topk = engine_mod.topk_scores
 
         def within(kind, fn):
             def run(group, *args, **kw):
@@ -393,8 +416,11 @@ class DistanceDispatches:
             if self.kind in ("centroids", "prefilter"):  # kept as they are
                 self.note(self.kind, qmat, sub.shape[0], lambda sub=sub: sub)
             elif self.kind == "rerank":  # the union's rows: as many of the column
-                self.note("rerank", qmat, sub.shape[0],
-                          lambda col=self.col, n=sub.shape[0]: col.data[:n])
+                def rows(col=self.col, n=sub.shape[0]):
+                    return col.data[:n]
+                self.note("rerank", qmat, sub.shape[0], rows)
+                if qmat.shape[0] == 1:  # a single query's union, as a served query's
+                    self.note("rerank_single", qmat, sub.shape[0], rows)
             return scored(qmat, sub)
 
         def flat_scan_scored(col, qmat, k, **kw):
@@ -403,8 +429,23 @@ class DistanceDispatches:
                           lambda col=col: col.data, k=k, valid_n=col.n_rows)
             return flat(col, qmat, k, **kw)
 
+        def reranked(group, cand, *args, **kw):
+            seen = []
+
+            def topk_noted(scores, k):
+                seen.append((scores, k))
+                return topk(scores, k)
+            engine_mod.topk_scores = topk_noted
+            try:
+                out = within("rerank", rerank)(group, cand, *args, **kw)
+            finally:
+                engine_mod.topk_scores = topk
+            for scores, k in seen:
+                self.note_order(group, cand, scores, k, out)
+            return out
+
         engine._ivf_scan = within("centroids", ivf_scan)
-        engine._rerank = within("rerank", rerank)
+        engine._rerank = reranked
         engine._prefilter_group = within("prefilter", prefilter)
         engine._batched_scores = batched_scores
         engine._flat_scan_scored = flat_scan_scored
@@ -460,6 +501,59 @@ def run_path(db, workload, constraints, device, min_sample_rows=2000,
 
 def ids_of(metrics):
     return [np.asarray(m.ids) for m in metrics.per_query]
+
+
+def check_rerank_order(rec: dict, what: str) -> None:
+    """Holds a device rerank (a ``DistanceDispatches`` order record) against
+    the host algorithm it replaced, over the device's own scores: each
+    query's ``np.unique`` union and the group's, ``searchsorted`` of one into
+    the other, and a stable descending ``argsort`` of the query's scores cut
+    to its k. The scores' columns must be the group's union, a query's
+    members exactly its scores above NEG_INF, and the ids equal."""
+    from repro_torch.kernels.common import NEG_INF
+    empty = np.empty(0, np.int64)
+    unions = [np.unique(np.concatenate(row + [empty])) for row in rec["cand"]]
+    gunion = np.unique(np.concatenate(unions))
+    scores = rec["scores"].cpu().numpy()
+    check(scores.shape == (len(unions), gunion.shape[0]),
+          f"{what}: scores {scores.shape}, the host union {gunion.shape[0]}")
+    for i, (u, k, got) in enumerate(zip(unions, rec["ks"], rec["out"])):
+        s = scores[i]
+        check(int((s > NEG_INF / 2).sum()) == u.shape[0],
+              f"{what}: query {i}'s mask holds {(s > NEG_INF / 2).sum()} of {u.shape[0]}")
+        s = s[np.searchsorted(gunion, u)]
+        want = u[np.argsort(-s, kind="stable")[:k]]
+        check(np.array_equal(got, want), f"{what}: query {i}'s ids differ from the host's")
+
+
+def timed_burst(eng, pairs, reps: int = 5) -> dict:
+    """Serves one burst once to warm it, then ``reps`` times, synchronising
+    around the burst and around its rerank: each rep's wall time and its
+    reranks' (ms), and their medians."""
+    rerank, walls, spent = eng._rerank, [], []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return rerank(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent[-1] += (time.perf_counter() - t0) * 1e3
+    eng._rerank = timed
+    try:
+        for _ in range(reps + 1):
+            spent.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.search_batch(pairs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        eng._rerank = rerank
+    return dict(group_ms=walls[1:], rerank_ms=spent[1:],
+                group_ms_median=statistics.median(walls[1:]),
+                rerank_ms_median=statistics.median(spent[1:]))
 
 
 def phase_main_path(rows: int, dev) -> dict:
@@ -528,8 +622,15 @@ def phase_main_path(rows: int, dev) -> dict:
                 seconds=dt, dispatch_counters=eng.counters.as_dict())
         for a, b in zip(got[True], got[False]):
             check(np.array_equal(a, b), f"{label} burst: two-pass ids differ")
+    # the device rerank's answers against the host algorithm it replaced, at
+    # the largest single-query group and at the burst's masked 64-query group
+    for kind in ("rerank_order", "rerank_order_masked"):
+        check(kind in dispatches.largest, f"no device rerank of kind {kind}")
+        check_rerank_order(dispatches.largest[kind], kind)
+    bursts["plan_streaming_timed"] = timed_burst(
+        r["engine"], [(bq, r["result"].plans[q.qid]) for bq in burst])
     emit("burst", query=q.name, plan=r["result"].plans[q.qid].describe(), batch=64,
-         ids_equal_streaming_two_pass=True, **bursts)
+         ids_equal_streaming_two_pass=True, rerank_equal_host=True, **bursts)
 
     counts = {name: n for name, n in launch_counts().items() if name in MINT_KERNELS}
     emit("launches", **counts,
@@ -542,7 +643,8 @@ def phase_main_path(rows: int, dev) -> dict:
     emit("distance_dispatches", **{kind: dict(shape=rec["shape"], **{
         key: rec[key] for key in ("k", "valid_n") if key in rec})
         for kind, rec in dispatches.largest.items()})
-    check(set(dispatches.largest) == {"centroids", "rerank", "flat_two_pass"},
+    check(set(dispatches.largest) == {"centroids", "rerank", "rerank_single", "flat_two_pass",
+                                      "rerank_order", "rerank_order_masked"},
           f"main path made distance dispatches of kinds {sorted(dispatches.largest)}")
     r.pop("undo_dispatches")()
     undo_two()
@@ -612,14 +714,15 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
                  bound_ms=b[0], bound_by=b[1], **extra)
 
     # distance: the largest dispatch of each kind on the main path (its own
-    # queries; the rerank's rows are as many rows of the same column), then
+    # queries; the rerank's rows are as many rows of the same column; the
+    # largest single-query rerank beside the largest of all), then
     # the two nominal serving shapes on seeded random inputs. The table row
     # is the rerank: the largest distance dispatch of the default (streaming)
     # serving path
     g = torch.Generator().manual_seed(1)
     disp = main["dispatches"]
     cases = [(kind, disp[kind]["qmat"], disp[kind]["rows"]())
-             for kind in ("centroids", "rerank", "flat_two_pass")]
+             for kind in ("centroids", "rerank", "rerank_single", "flat_two_pass")]
     cases += [(f"nominal_{n}x{dd}", torch.randn(64, dd, generator=g).to(dev),
                torch.randn(n, dd, generator=g).to(dev))
               for n, dd in ((1000, 384), (4096, 1024))]
@@ -646,21 +749,29 @@ def phase_kernel_times(main: dict, dev, peaks, errs: dict) -> list[dict]:
     # top-k over the two-pass flat scan's masked (B, N) scores at its own k,
     # as fused_scan computes them, then at the nominal k = 128, then at the
     # threshold's worst case: scores rising along each row (every key
-    # survives the threshold), at the same shape and k
+    # survives the threshold), at the same shape and k; then the rerank's
+    # order at its largest inputs as the engine made them, a single query's
+    # union and the burst's 64 queries over their group's union with each
+    # query's non-members at NEG_INF, at the group's k
     flat = disp["flat_two_pass"]
     scores = _mask_rows(batched_scores_ref(flat["qmat"], flat["rows"]()), flat["valid_n"])
-    B, n = scores.shape
     k_path = min(flat["k"], flat["valid_n"])
-    rising = torch.arange(n, device=dev, dtype=torch.float32).expand(B, n).contiguous()
-    for label, s_in, kk in (("flat_two_pass", scores, k_path), ("nominal", scores, 128),
-                            ("ascending_worst_case", rising, k_path)):
+    rising = torch.arange(scores.shape[1], device=dev,
+                          dtype=torch.float32).expand(*scores.shape).contiguous()
+    cases = [("flat_two_pass", scores, k_path), ("nominal", scores, 128),
+             ("ascending_worst_case", rising, k_path)]
+    cases += [(label, disp[kind]["scores"], disp[kind]["k"])
+              for label, kind in (("rerank", "rerank_order"),
+                                  ("rerank_masked", "rerank_order_masked"))]
+    for label, s_in, kk in cases:
+        B, n = s_in.shape
         tv, ti = topk_scores(s_in, kk)
         tr, tri = topk_ref(s_in, kk)
         check(torch.equal(tv, tr) and torch.equal(ti, tri),
               f"top-k differs at {label} ({B}, {n}, {kk})")
         ms = cuda_ms(lambda: topk_scores(s_in, kk))
         plain = cuda_ms(lambda: topk_ref(s_in, kk))
-        lib = cuda_ms(lambda: torch.topk(s_in, kk, dim=1))
+        lib = cuda_ms(lambda: torch.topk(s_in, min(kk, n), dim=1))
         nbytes = 4 * s_in.numel() + 8 * B * kk
         b = bound(nbytes, 0.0, peaks)
         g = topk_grid(B, n, kk, sms)

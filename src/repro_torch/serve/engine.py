@@ -11,10 +11,13 @@ column store (``serve.columnstore``):
     by a single gathered-row scoring pass over the padded probe union;
   - graph kinds (hnsw / diskann): per-query host walks (graph walks don't
     batch; ``counters.fallback``), but the rerank below still batches;
-  - rerank: ONE distance-kernel dispatch per group over the padded
-    candidate union, skipped on the single-exact-vid fast path — the same
-    rule ``planner._plan_cost`` uses, so executed cost matches planned cost
-    structurally.
+  - rerank: ONE distance-kernel dispatch per group over the candidate
+    union, skipped on the single-exact-vid fast path — the same rule
+    ``planner._plan_cost`` uses, so executed cost matches planned cost
+    structurally. The union is built on the device as a row-membership
+    mask and each query's top k is taken by the top-k kernel, so only
+    (B, k) ids come back; a mutated table's stable-id union stays on the
+    host.
 
 ek buckets pad *dispatch shapes* only; each query slices its own exact ek
 from the best-first results, so batched top-k ids are identical to the
@@ -102,6 +105,7 @@ from repro_torch.kernels.common import NEG_INF, resolve_device
 from repro_torch.kernels.distance.kernel import batched_scores
 from repro_torch.kernels.distance.ops import fused_scan
 from repro_torch.kernels.streaming.ops import delta_id_offset, streaming_fused_scan
+from repro_torch.kernels.topk.kernel import topk_scores
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.roofline import modeled_scan_bytes
 from repro_torch.obs import NULL_OBSERVER
@@ -245,7 +249,8 @@ class _StageClock:
     observer. ``lap(name)`` ends a stage where the last one ended, so the
     stages tile the step; ``close(name, **attrs)`` hangs the step's span,
     its stages inside, under the current span (the group's). Every stage
-    that touches the device ends in a copy to the host, so a stage times
+    that touches the device ends in a copy to the host or, where its result
+    stays on the device, a synchronisation of the stream, so a stage times
     the work, not its enqueue."""
 
     __slots__ = ("obs", "t0", "t", "laps")
@@ -306,6 +311,8 @@ class BatchEngine:
             streaming = os.environ.get("REPRO_TWOPASS_SCAN", "0") != "1"
         self.streaming = streaming
         self.counters = DispatchCounters()
+        # groups whose rerank union was built on the device (``_device_rerank``)
+        self.device_unions = 0
         self.mview = None  # ingest.MutationView when mutations flow
         # filtered search (attach_filters): attribute store + optional
         # selectivity estimator, and the per-predicate bitmap cache
@@ -775,11 +782,13 @@ class BatchEngine:
         return self._masked_group(group, fs, sq)
 
     def _gathered_scores(self, col: DeviceColumn, qmat: torch.Tensor,
-                         phys: np.ndarray) -> np.ndarray:
+                         phys) -> torch.Tensor:
         """Distance-kernel scores of ``qmat`` against the gathered rows
-        ``phys`` of ``col`` -> host (B, len(phys))."""
-        sub = self._take(col, torch.as_tensor(phys.astype(np.int64), device=self.device))
-        return self._batched_scores(qmat, sub)
+        ``phys`` (host ids, or an id tensor on the device) of ``col`` ->
+        (B, len(phys)), left on the device."""
+        if not isinstance(phys, torch.Tensor):
+            phys = torch.as_tensor(phys.astype(np.int64), device=self.device)
+        return self._batched_scores(qmat, self._take(col, phys))
 
     def _prefilter_group(self, group: PlanGroup, fs: _FilterState,
                          sq: dict | None = None):
@@ -801,14 +810,14 @@ class BatchEngine:
         if mv is None:
             bphys = np.nonzero(fs.base_keep)[0]
             if bphys.size:
-                parts_s.append(self._gathered_scores(col, qmat, bphys))
+                parts_s.append(_host(self._gathered_scores(col, qmat, bphys)))
                 parts_ids.append(bphys.astype(np.int64))
                 self.counters.scan += 1
         else:
             t = mv.table
             bphys = np.nonzero(fs.base_keep & t.base_alive)[0]
             if bphys.size:
-                parts_s.append(self._gathered_scores(col, qmat, bphys))
+                parts_s.append(_host(self._gathered_scores(col, qmat, bphys)))
                 parts_ids.append(mv.translate(bphys))
                 self.counters.scan += 1
             if fs.delta_keep is not None:
@@ -816,7 +825,7 @@ class BatchEngine:
                 if dphys.size:
                     dcol = mv.delta(vid)
                     qd = self._qmat(dcol.col, items)
-                    parts_s.append(self._gathered_scores(dcol.col, qd, dphys))
+                    parts_s.append(_host(self._gathered_scores(dcol.col, qd, dphys)))
                     parts_ids.append(dcol.ids[dphys])
                     self.counters.delta += 1
         scores = np.concatenate(parts_s, axis=1)
@@ -991,10 +1000,10 @@ class BatchEngine:
 
     # ---- dispatches ---------------------------------------------------------
 
-    def _batched_scores(self, qmat: torch.Tensor, sub: torch.Tensor) -> np.ndarray:
+    def _batched_scores(self, qmat: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
         """One batched scoring dispatch (the distance kernel on the card, its
-        plain version on the CPU) -> host (B, N) scores."""
-        return _host(batched_scores(qmat, sub))
+        plain version on the CPU) -> (B, N) scores, left on the device."""
+        return batched_scores(qmat, sub)
 
     def _flat_scan(self, col: DeviceColumn, qmat: torch.Tensor, k: int) -> np.ndarray:
         return self._flat_scan_scored(col, qmat, k)[1]
@@ -1163,7 +1172,7 @@ class BatchEngine:
         cent = np.asarray(idx.centroids, dtype=np.float32)
         if col.padded_dim != cent.shape[1]:
             cent = np.pad(cent, ((0, 0), (0, col.padded_dim - cent.shape[1])))
-        csims = self._batched_scores(qmat, torch.as_tensor(cent, device=self.device))
+        csims = _host(self._batched_scores(qmat, torch.as_tensor(cent, device=self.device)))
         self.counters.scan += 1
         if st is not None:
             st.lap("ivf_centroids")
@@ -1229,18 +1238,94 @@ class BatchEngine:
     def _rerank(self, group: PlanGroup, cand, mv=None,
                 sq: dict | None = None) -> list[np.ndarray]:
         """Full-score rerank over each query's candidate union, batched as
-        ONE distance-kernel dispatch over the group-wide union; per-query
-        selection slices its own candidates (sorted ids + stable ordering —
-        the same tie-breaking as the per-query numpy path). Under mutations
-        the union holds stable ids and each is gathered from whichever side
-        (base column / delta segment) physically stores it.
+        ONE distance-kernel dispatch over the group-wide union; each query
+        keeps its best k by score, equal scores by ascending id. An
+        unmutated table's union is built and ordered on the device
+        (``_device_rerank``); a mutated table's holds stable ids that span
+        base and delta, and is built and ordered on the host
+        (``_host_rerank``).
 
-        Observed, the rerank is a ``rerank`` span (the group's union, and
-        ``cand``, its candidates counted before de-duplication) holding its
-        stages: ``rerank_union`` (each query's union and the group's, on
-        the host), ``rerank_score`` (the union's scores and their copy
-        back) and ``rerank_order`` (each query's top k, on the host)."""
+        Observed, the rerank is a ``rerank`` span (the group's union,
+        ``cand``, its candidates counted before de-duplication, and
+        ``union_on``, ``"device"`` or ``"host"``) holding its stages
+        ``rerank_union``, ``rerank_score`` and ``rerank_order``."""
         st = _StageClock(self.obs) if self.obs.enabled else None
+        if mv is None:
+            out, n_union = self._device_rerank(group, cand, st, sq)
+        else:
+            out, n_union = self._host_rerank(group, cand, mv, st, sq)
+        if st is not None:
+            st.close("rerank", batch=len(group.items), union=n_union,
+                     cand=sum(int(c.shape[0]) for row in cand for c in row),
+                     union_on="device" if mv is None else "host")
+        return out
+
+    def _device_rerank(self, group: PlanGroup, cand, st, sq
+                       ) -> tuple[list[np.ndarray], int]:
+        """The rerank of base row ids, on the device: the group's candidates
+        go up in one copy and are scattered into a (B, rows) membership
+        mask, where duplicates across indexes collapse without a sort; the
+        group's union is the mask's nonzero columns, in ascending id order.
+        Each query's scores over that union, its non-members masked, are
+        ordered by the top-k kernel (ties by ascending position, so by
+        ascending id), and only the (B, k) ids come back.
+
+        Stages: ``rerank_union`` (the upload, the scatter and the
+        ``nonzero``, which waits for them), ``rerank_score`` (the union's
+        rows and their scores) and ``rerank_order`` (mask, top-k, the copy
+        back). Returns (each query's ids, the union's size)."""
+        items = group.items
+        B = len(items)
+        col = self.cstore.device(group.key.vid)
+        N = col.n_rows
+        total = sum(int(c.shape[0]) for row in cand for c in row)
+        if total == 0:
+            if st is not None:
+                st.lap("rerank_union")
+            return [np.empty(0, np.int64) for _ in items], 0
+        # query i's ids as flat positions i * N + id of the row-major mask
+        flat = np.empty(total, np.int32 if B * N < 2 ** 31 else np.int64)
+        o = 0
+        for i, row in enumerate(cand):
+            for c in row:
+                np.add(c, np.int64(i * N), out=flat[o:o + c.shape[0]],
+                       casting="unsafe")
+                o += c.shape[0]
+        mask = torch.zeros(B * N, dtype=torch.bool, device=self.device)
+        mask[torch.from_numpy(flat).to(self.device)] = True
+        mask = mask.view(B, N)
+        gunion = (mask[0] if B == 1 else mask.any(0)).nonzero().squeeze(1)
+        if st is not None:
+            st.lap("rerank_union")
+        qmat = self._qmat(col, items, sq=sq, slot="rerank")
+        scores = self._gathered_scores(col, qmat, gunion)
+        self.counters.rerank += 1
+        self.device_unions += 1
+        if st is not None:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            st.lap("rerank_score")
+        if B > 1:  # the group's union is wider than a query's own
+            scores = torch.where(mask[:, gunion], scores, NEG_INF)
+        vals, pos = topk_scores(scores, group.max_k)
+        rows = _host(torch.where(vals > _DEAD_CUT, gunion[pos.long()], -1))
+        out = []
+        for i, it in enumerate(items):
+            r = rows[i, : it.query.k]
+            out.append(r[r >= 0])  # a union shorter than k leaves empty slots
+        if st is not None:
+            st.lap("rerank_order")
+        return out, int(gunion.shape[0])
+
+    def _host_rerank(self, group: PlanGroup, cand, mv, st, sq
+                     ) -> tuple[list[np.ndarray], int]:
+        """The rerank of a mutated table's stable ids, on the host: each
+        query's sorted union and the group's, one scoring dispatch whose
+        ids are gathered from whichever side (base column / delta segment)
+        physically stores them, and each query's stable argsort of its own
+        scores. Stages as ``_device_rerank``'s; ``rerank_union`` and
+        ``rerank_order`` are host numpy, ``rerank_score`` ends in the
+        scores' copy back. Returns (each query's ids, the union's size)."""
         items = group.items
         unions = []
         for i in range(len(items)):
@@ -1251,17 +1336,13 @@ class BatchEngine:
         if not nonempty:
             if st is not None:
                 st.lap("rerank_union")
-                st.close("rerank", batch=len(items), union=0, cand=0)
-            return [np.empty(0, np.int64) for _ in items]
+            return [np.empty(0, np.int64) for _ in items], 0
         gunion = np.unique(np.concatenate(nonempty))
         if st is not None:
             st.lap("rerank_union")
         col = self.cstore.device(group.key.vid)
         qmat = self._qmat(col, items, sq=sq, slot="rerank")
-        if mv is None:
-            scores = self._gathered_scores(col, qmat, gunion)
-        else:
-            scores = self._mv_union_scores(mv, group, col, qmat, gunion)
+        scores = self._mv_union_scores(mv, group, col, qmat, gunion)
         self.counters.rerank += 1
         if st is not None:
             st.lap("rerank_score")
@@ -1276,9 +1357,7 @@ class BatchEngine:
             out.append(unions[i][top])
         if st is not None:
             st.lap("rerank_order")
-            st.close("rerank", batch=len(items), union=int(gunion.shape[0]),
-                     cand=sum(int(c.shape[0]) for row in cand for c in row))
-        return out
+        return out, int(gunion.shape[0])
 
     def _mv_union_scores(self, mv, group: PlanGroup, col: DeviceColumn,
                          qmat: torch.Tensor, gunion: np.ndarray) -> np.ndarray:
@@ -1291,12 +1370,12 @@ class BatchEngine:
         out = np.empty((qmat.shape[0], gunion.shape[0]), dtype=np.float32)
         bpos = np.nonzero(~is_delta)[0]
         if bpos.size:
-            out[:, bpos] = self._gathered_scores(col, qmat, phys[bpos])
+            out[:, bpos] = _host(self._gathered_scores(col, qmat, phys[bpos]))
         dpos = np.nonzero(is_delta)[0]
         if dpos.size:
             dcol = mv.delta(group.key.vid)
             qd = self._qmat(dcol.col, group.items)
-            out[:, dpos] = self._gathered_scores(dcol.col, qd, phys[dpos])
+            out[:, dpos] = _host(self._gathered_scores(dcol.col, qd, phys[dpos]))
         return out
 
     def _group_ground_truth(self, group: PlanGroup, gt_cache):

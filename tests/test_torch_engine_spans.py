@@ -146,6 +146,26 @@ def test_rerank_counts_are_the_true_union_and_candidates(served):
     assert seen == 1
 
 
+def test_rerank_stages_tile_the_rerank_span(served):
+    """The rerank's three stages run in order, the first from the span's
+    start, each from where the last one ended."""
+    spans = [sp for sp in served["dispatch"].walk() if sp.name == "rerank"]
+    assert len(spans) == 1
+    for rr in spans:
+        stages = rr.children
+        assert [c.name for c in stages] == RERANK_STAGES
+        assert stages[0].t0 == rr.t0 and stages[-1].t1 <= rr.t1
+        assert all(a.t1 == b.t0 for a, b in zip(stages, stages[1:]))
+
+
+def test_rerank_span_says_where_the_union_was_built(served):
+    """An unmutated table's union is built on the device, once per group
+    that reranks."""
+    spans = [sp for sp in served["dispatch"].walk() if sp.name == "rerank"]
+    assert [sp.attrs["union_on"] for sp in spans] == ["device"]
+    assert served["engine"].device_unions == served["engine"].counters.rerank == 1
+
+
 def test_a_rendered_tree_shows_the_counts(served):
     text = render_trace(served["trace"])
     for stage in IVF_STAGES + RERANK_STAGES + ["ivf_scan", "rerank", "flat_scan"]:
